@@ -8,14 +8,15 @@ Run from the root of the repository, with no arguments:
 It imports nothing of JAX and nothing of the JAX package.  Phases, in order
 (any failure raises and the script exits non-zero without a result line):
 
-1. Identify the card (``nvidia-smi`` name and power limit) and build both
-   CUDA kernels from ``opencorr_tpu_torch/csrc`` (one ``nvcc`` each, all
-   started together).
+1. Identify the card (``nvidia-smi`` name and power limit) and build the
+   three CUDA kernels from ``opencorr_tpu_torch/csrc`` (one ``nvcc`` each,
+   all started together).
 2. Each kernel against its plain PyTorch version on the card at the main
-   path's shapes: the window gather bit-exact at 30k x 32x32, 33x33 and
-   40x40 and 940 x 48x48 with corners that need clamping; the lattice eval
-   at D=2 (30k POIs) and D=6 (940 POIs) within 1e-6 x max|eblk|, and
-   exactly 0 for out-of-range offsets.  Kernel, plain and library times.
+   paths' shapes: the window gather bit-exact at 30k x 32x32, 33x33 and
+   40x40 and 940 x 48x48 with corners that need clamping; the 2D lattice
+   eval at D=2 (30k POIs) and D=6 (940 POIs) and the 3D lattice eval at
+   D=1 (441 x 61^3) within 1e-6 x max|eblk|, and exactly 0 for
+   out-of-range offsets.  Kernel, plain and library times.
 3. The main path on ``cuda``: FFTCC2D(16,16) -> ICGN2D1(16,16,0.001,10) ->
    Strain(20,5) on ``poi_grid_2d((30,30),100,300,2)`` (30,000 POIs) of a
    900x280 8-bit speckle pair whose target is the reference under a known
@@ -27,7 +28,17 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    2,000-POI subset, with every 8th seed displaced by 3 px so that the
    IC-GN windowed eval takes its D=6 correction branch: FFTCC u/v equal,
    IC-GN codes equal, u/v within 1e-3 px.
-5. JSON lines: per-kernel records, the stage times, and last
+5. The DVC path on ``cuda``: FFTCC3D(30) -> ICGN3D1(30, 0.001, 10) ->
+   Strain(30, 10) on ``poi_grid_3d((35,35,60),7,7,117,5)`` (5,733 POIs, the
+   al_foam4 golden table's grid) of a 700x100x100 8-bit speckle volume pair
+   whose target is the reference under u=0.4, v=-0.3 and w=0.6 plus 0.5%
+   strain along z, then ``save_table_3d`` and ``save_matrix_bin_3d``.
+   Counters zeroed just before the timed run (after a 512-POI warm-up) and
+   read just after.  Checks convergence, the recovered field and ezz.
+6. The DVC modules on ``cuda`` and on ``cpu`` on 64 POIs at r=16, every
+   8th seed given a 0.2 z strain so that IC-GN takes its whole-chunk exact
+   fallback: FFTCC u/v/w equal, codes equal, u/v/w within 1e-3 voxel.
+7. JSON lines: per-kernel records, the stage times, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,6 +63,16 @@ STRAIN = 0.005
 # Lattice eval flops per in-range sample: 8 cubic weights (3 mul + 3 add
 # each) and 16 taps (2 mul + 1 add each).
 LATTICE_FLOPS = 8 * 6 + 16 * 3
+# 3D lattice eval flops per in-range sample: 12 basis values (21 flops per
+# axis), 16 yz products, and 64 taps (2 mul + 1 add each).
+LATTICE3D_FLOPS = 3 * 21 + 16 + 64 * 3
+# The DVC path: al_foam4's volume size [z, y, x], the golden table's POI
+# grid, r=30, and the field imposed on the target.
+DVC_SHAPE = (700, 100, 100)
+DVC_R = 30
+DVC_UVW = (0.4, -0.3, 0.6)
+DVC_STRAIN = 0.005
+DVC_CZ = (DVC_SHAPE[0] - 1) / 2.0
 
 
 def log(*a):
@@ -198,7 +219,58 @@ def phase_kernels(torch, img, rng, reps):
             bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
         records["lattice"].append(rec)
         log(json.dumps({"kernel": "lattice_eval_2d", **rec}))
+    records["lattice3d"] = [phase_lattice3d(torch, rng, reps)]
     return records
+
+
+def phase_lattice3d(torch, rng, reps, n=441, s=61, d=1):
+    """The 3D lattice kernel against its plain version at the shape of one
+    of the DVC path's ICGN3D1 chunks (441 POIs at r=30 on an 80 GB card),
+    with out-of-range offsets on every axis."""
+    from opencorr_tpu_torch.ops import lattice3d
+
+    dev = torch.device("cuda")
+    e = s + 3 + 2 * d
+    eblk = torch.from_numpy(np.round(rng.uniform(
+        0, 255, (n, e, e, e))).astype(np.float32)).to(dev)
+    offs = []
+    for far in (-7, 40, 2 * d + 9):  # z, y, x
+        a = rng.integers(0, 2 * d + 1, (n, s, s, s), dtype=np.int32)
+        bad = rng.uniform(size=a.shape) < 0.02
+        a[bad] = rng.choice([-1, 2 * d + 1, far], bad.sum())
+        offs.append(torch.from_numpy(a).to(dev))
+    fracs = [torch.from_numpy(rng.uniform(0, 1, (n, s, s, s)).astype(
+        np.float32)).to(dev) for _ in range(3)]
+    args = (eblk, *offs, *fracs)
+    got = lattice3d.lattice_eval_3d(*args, d_wobble=d)
+    want = lattice3d.lattice_eval_3d_plain(*args, d_wobble=d)
+    torch.cuda.synchronize()
+    oor = torch.zeros_like(offs[0], dtype=torch.bool)
+    for a in offs:
+        oor |= (a < 0) | (a > 2 * d)
+    check(bool((got[oor] == 0).all()), "lattice3d: nonzero out of range")
+    err = float((got - want).abs().max())
+    tol = 1e-6 * float(eblk.abs().max())
+    check(err <= tol, f"lattice3d: max|err| {err} > {tol}")
+    del got, want
+    in_range = int((~oor).sum())
+    nbytes = (eblk.numel() + 7 * n * s ** 3) * 4
+    flops = in_range * LATTICE3D_FLOPS
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOP_PER_S * 1e3
+    rec = dict(
+        shape=[n, s, s, s], d_wobble=d, max_abs_err=err, tolerance=tol,
+        ms=cuda_ms(torch, lambda: lattice3d.lattice_eval_3d(
+            *args, d_wobble=d), reps),
+        plain_ms=cuda_ms(torch, lambda: lattice3d.lattice_eval_3d_plain(
+            *args, d_wobble=d), max(2, reps // 4)),
+        library_ms=None,
+        library_note="no single PyTorch call computes a tricubic B-spline "
+                     "sum over per-POI blocks at per-sample offsets",
+        bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
+        bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
+    log(json.dumps({"kernel": "lattice_eval_3d", **rec}))
+    return rec
 
 
 def run_path(torch, ot, ref, tar, pois, device, csv_path=None):
@@ -336,6 +408,178 @@ def phase_cpu_agreement(torch, ot, ref, tar):
     return res
 
 
+def speckle_volumes(seed: int):
+    """700x100x100 uint8 pair: Gaussian-filtered noise at 128 +- 20 grey
+    levels; the target is the reference under the imposed DVC field.
+
+    A volume holds 28 times the voxels of the 2D pair, so its extremes lie
+    further out: at +- 28 about 250 voxels fall below 20, and the B-spline
+    undershoot near them fails every subset that holds one (-3, 8 of 40
+    POIs in a CPU trial).  At +- 20 the darkest voxel is 32."""
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    rng = np.random.default_rng(seed)
+    pad = 8
+    shp = tuple(d + 2 * pad for d in DVC_SHAPE)
+    base = gaussian_filter(rng.standard_normal(shp, dtype=np.float32), 1.5)
+    base = base / base.std() * 20.0 + 128.0
+    ref = np.clip(np.round(base[pad:-pad, pad:-pad, pad:-pad]), 0, 255)
+    zz, yy, xx = np.mgrid[0:DVC_SHAPE[0], 0:DVC_SHAPE[1],
+                          0:DVC_SHAPE[2]].astype(np.float32)
+    u, v, w = DVC_UVW
+    # target(x') = reference(X), x' = X + u(X), w linear in Z
+    sz = DVC_CZ + (zz - w - DVC_CZ) / (1.0 + DVC_STRAIN)
+    tar = map_coordinates(base, [sz + pad, yy - v + pad, xx - u + pad],
+                          order=3, mode="nearest")
+    tar = np.clip(np.round(tar), 0, 255)
+    return ref.astype(np.uint8), tar.astype(np.uint8)
+
+
+def true_uvw(z):
+    u, v, w = DVC_UVW
+    return u, v, w + DVC_STRAIN * (z - DVC_CZ)
+
+
+def run_dvc(torch, ot, ref, tar, pois, device, r=DVC_R, out_dir=None):
+    """FFTCC3D -> ICGN3D1 -> Strain on ``pois``; per-stage milliseconds."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    ms = {}
+    t0 = time.perf_counter()
+    fftcc = ot.FFTCC3D(r, r, r, device=device)
+    fftcc.set_images(ref, tar)
+    icgn = ot.ICGN3D1(r, r, r, 0.001, 10, device=device)
+    icgn.set_images(ref, tar)
+    icgn.prepare()
+    strain = ot.Strain(r, 10, device=device)
+    sync()
+    ms["setup_prepare"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    seeded = fftcc.compute(pois)
+    sync()
+    ms["fftcc3d"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    refined = icgn.compute(seeded)
+    sync()
+    ms["icgn3d1"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = strain.compute(refined)
+    sync()
+    ms["strain"] = (time.perf_counter() - t0) * 1e3
+    if out_dir is not None:
+        dims = (DVC_SHAPE[2], DVC_SHAPE[1], DVC_SHAPE[0])
+        t0 = time.perf_counter()
+        ot.save_table_3d(os.path.join(out_dir, "dvc.csv"), out)
+        ms["save_table_3d"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ot.save_matrix_bin_3d(os.path.join(out_dir, "dvc.bin"), out, dims)
+        ms["save_matrix_bin_3d"] = (time.perf_counter() - t0) * 1e3
+    return out, ms, dict(icgn.stats), dict(fftcc.stats)
+
+
+def phase_dvc(torch, ot, ref, tar, tmpdir):
+    from opencorr_tpu_torch.ops import lattice3d
+
+    pois = ot.poi_grid_3d((35, 35, 60), 7, 7, 117, 5)
+    n = pois.n
+    check(n == 5733, "DVC grid size")
+    run_dvc(torch, ot, ref, tar, pois.map(lambda a: a[:512]), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lattice3d.lattice_eval_3d.launches = 0
+    out, ms, stats, fstats = run_dvc(torch, ot, ref, tar, pois, "cuda",
+                                     out_dir=tmpdir)
+    launches = {"lattice_eval_3d": lattice3d.lattice_eval_3d.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["lattice_eval_3d"] > 0,
+          "the DVC path launched lattice_eval_3d no time")
+
+    t = ot.table_to_numpy(out)
+    for f, k in (("p", 12), ("r", 7), ("e", 6), ("sr", 3)):
+        check(t[f].shape == (n, k), f"field {f} shape {t[f].shape}")
+    zn = t["r"][:, 3]
+    conv = zn > 0.9
+    ut, vt, wt = true_uvw(t["z"].astype(np.float64))
+    du = np.abs(t["p"][conv, 0] - ut)
+    dv = np.abs(t["p"][conv, 4] - vt)
+    dw = np.abs(t["p"][conv, 8] - wt[conv])
+    ezz = t["e"][conv, 2]
+    with open(os.path.join(tmpdir, "dvc.csv")) as f:
+        n_lines = sum(1 for _ in f)
+    rec, dims = ot.load_matrix_bin_3d(os.path.join(tmpdir, "dvc.bin"))
+    res = dict(
+        pois=n, r=DVC_R, volume=list(DVC_SHAPE),
+        converged_frac=float(conv.mean()), mean_abs_du=float(du.mean()),
+        mean_abs_dv=float(dv.mean()), mean_abs_dw=float(dw.mean()),
+        max_abs_duvw=float(max(du.max(), dv.max(), dw.max())),
+        mean_ezz=float(ezz.mean()), mean_exx=float(t["e"][conv, 0].mean()),
+        imposed_ezz=DVC_STRAIN,
+        codes={str(c): int((zn == c).sum()) for c in (-1.0, -3.0, -4.0,
+                                                       -5.0)},
+        mean_iterations=float(t["r"][conv, 4].mean()),
+        icgn_stats=stats, fftcc_stats=fstats, launches=launches,
+        stage_ms=ms, peak_mem_mb=peak / 2**20, csv_lines=n_lines,
+        matrix_bin_records=int(rec.shape[0]))
+    log(json.dumps({"dvc_path": res}))
+    check(np.isfinite(t["p"][conv]).all() and np.isfinite(t["e"][conv]).all(),
+          "non-finite DVC results on converged POIs")
+    check(res["converged_frac"] >= 0.9, f"DVC converged {res['converged_frac']}")
+    check(max(res["mean_abs_du"], res["mean_abs_dv"], res["mean_abs_dw"])
+          < 0.01, f"DVC displacement error {res['mean_abs_du']}, "
+          f"{res['mean_abs_dv']}, {res['mean_abs_dw']}")
+    check(abs(res["mean_ezz"] - DVC_STRAIN) < 1e-3,
+          f"DVC ezz {res['mean_ezz']} vs {DVC_STRAIN}")
+    check(n_lines == n + 1, f"DVC csv lines {n_lines}")
+    check(rec.shape == (n, 8) and dims == (100, 100, 700), "matrix bin")
+    return res, launches
+
+
+def phase_dvc_cpu_agreement(torch, ot, ref, tar, r=16, n_pois=64):
+    """The DVC modules on cuda and on cpu on a 64-POI subset at r=16, every
+    8th seed strained by 0.2 along z (the whole-chunk exact fallback)."""
+    devices = card, host = ("cuda", "cpu")
+    full = ot.poi_grid_3d((35, 35, 60), 7, 7, 117, 5, device="cpu")
+    keep = np.linspace(0, full.n - 1, n_pois).astype(np.int64)
+    xyz = [a[keep] for a in full.coords_numpy()]
+    seeded = {}
+    for dev in devices:
+        f = ot.FFTCC3D(r, r, r, device=dev)
+        f.set_images(ref, tar)
+        seeded[dev] = ot.table_to_numpy(
+            f.compute(ot.new_table_3d(*xyz, device=dev)))
+    fu = np.array_equal(seeded[card]["p"], seeded[host]["p"])
+    check(fu, "FFTCC3D u/v/w differ between cuda and cpu")
+    s = seeded[host]
+    p = s["p"].copy()
+    p[::8, 11] = 0.2
+    outs, res = {}, {}
+    for dev in devices:
+        t = ot.table_from_numpy_3d(s["x"], s["y"], s["z"], p, s["r"], s["e"],
+                                   s["sr"], device=dev)
+        m = ot.ICGN3D1(r, r, r, 0.001, 10, device=dev)
+        m.set_images(ref, tar)
+        m.prepare()
+        outs[dev] = ot.table_to_numpy(m.compute(t))
+        res[f"stats_{dev}"] = dict(m.stats)
+    zc, zp = outs[card]["r"][:, 3], outs[host]["r"][:, 3]
+    codes_equal = np.array_equal(np.where(zc < 0, zc, 1),
+                                 np.where(zp < 0, zp, 1))
+    both = (zc > 0) & (zp > 0)
+    duvw = np.abs(outs[card]["p"][both][:, [0, 4, 8]]
+                  - outs[host]["p"][both][:, [0, 4, 8]])
+    it_eq = float((outs[card]["r"][:, 4] == outs[host]["r"][:, 4]).mean())
+    res.update(pois=n_pois, r=r, fftcc_uvw_equal=fu, codes_equal=codes_equal,
+               max_abs_duvw=float(duvw.max()) if both.any() else None,
+               iterations_equal_frac=it_eq, converged=int(both.sum()))
+    log(json.dumps({"dvc_cuda_vs_cpu": res}))
+    check(codes_equal, "ICGN3D1 codes differ between cuda and cpu")
+    check(both.any() and res["max_abs_duvw"] <= 1e-3,
+          f"u/v/w differ by {res['max_abs_duvw']}")
+    for dev in devices:
+        check(res[f"stats_{dev}"].get("fallback", 0) > 0,
+              f"the exact fallback did not run on {dev}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -357,7 +601,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    names = ["gather2d", "lattice2d"]
+    names = ["gather2d", "lattice2d", "lattice3d"]
     build_s = _kernels.build(names)
     for name in names:
         log(f"build {name}: {build_s[name]:.1f} s")
@@ -388,7 +632,19 @@ def main() -> int:
     phase_cpu_agreement(torch, ot, ot.Image2D.from_array(ref),
                         ot.Image2D.from_array(tar))
 
-    # phase 5: the records
+    # phase 5: the DVC path
+    t0 = time.perf_counter()
+    vref, vtar = speckle_volumes(seed=2)
+    log(json.dumps({"dvc_volumes_s": time.perf_counter() - t0}))
+    vref, vtar = ot.Image3D.from_array(vref), ot.Image3D.from_array(vtar)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        dvc_res, dvc_launches = phase_dvc(torch, ot, vref, vtar, tmpdir)
+    launches.update(dvc_launches)
+
+    # phase 6: the DVC modules on cuda against the cpu
+    phase_dvc_cpu_agreement(torch, ot, vref, vtar)
+
+    # phase 7: the records
     def summary(name, route, source, replaces, recs, ref_shape):
         r = next(x for x in recs if x["shape"] == ref_shape)
         return dict(
@@ -408,8 +664,13 @@ def main() -> int:
                 "opencorr_tpu_torch/csrc/lattice2d.cu",
                 "opencorr_tpu/ops/pallas_lattice2d.py:68",
                 records["lattice"], [30000, 33, 33]),
+        summary("lattice_eval_3d", "cuda",
+                "opencorr_tpu_torch/csrc/lattice3d.cu",
+                "opencorr_tpu/ops/pallas_lattice.py:74",
+                records["lattice3d"], [441, 61, 61, 61]),
     ]
     log(json.dumps({"stage_ms": main_res["stage_ms"],
+                    "dvc_stage_ms": dvc_res["stage_ms"],
                     "total_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

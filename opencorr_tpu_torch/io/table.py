@@ -1,13 +1,15 @@
-"""OpenCorr-compatible 2D CSV tables.
+"""OpenCorr-compatible CSV tables and the DVC matrix checkpoint.
 
 Schemas mirror ``oc_io.cpp`` so the reference's files load unmodified:
 
-* result table (``saveTable2D``, oc_io.cpp:318-373): header
+* 2D result table (``saveTable2D``, oc_io.cpp:318-373): header
   x,y,u,v,u0,v0,ZNCC,iteration,convergence,feature,exx,eyy,exy,subset_rx,
   subset_ry with fixed 8-decimal precision and a trailing delimiter per row;
-* deformation table (``saveDeformationTable2D``, oc_io.cpp:375-421);
-* value maps (``saveMap2D``, oc_io.cpp:423-504): an image-sized grid with
-  one selected variable rasterized at each POI position.
+* 2D deformation table (``saveDeformationTable2D``, oc_io.cpp:375-421);
+* 2D value maps (``saveMap2D``, oc_io.cpp:423-504): an image-sized grid with
+  one selected variable rasterized at each POI position;
+* DVC result table (``saveTable3D``, oc_io.cpp:1004-1089), 3D value maps
+  (``saveMap3D``) and the binary matrix checkpoint (``saveMatrixBin``).
 
 All writers format like C++ ``std::fixed`` with 8 decimals.
 """
@@ -15,7 +17,7 @@ All writers format like C++ ``std::fixed`` with 8 decimals.
 from __future__ import annotations
 
 import io
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -102,6 +104,102 @@ def save_map_2d(path: str, table: poi_mod.POITable2D, variable: str,
     with open(path, "w") as f:
         for row in out:
             f.write(_fmt_row(row, delimiter) + "\n")
+
+
+def save_table_3d(path: str, table: poi_mod.POITable3D,
+                  delimiter: str = ",") -> None:
+    """DVC result table (oc_io.cpp:1004-1089), 21 columns."""
+    cols = ["x", "y", "z", "u", "v", "w", "u0", "v0", "w0", "ZNCC",
+            "iteration", "convergence", "exx", "eyy", "ezz", "exy", "eyz",
+            "ezx", "subset_rx", "subset_ry", "subset_rz"]
+    p = _np(table.p)
+    r = _np(table.r)
+    data = np.column_stack(
+        [_np(table.x), _np(table.y), _np(table.z), p[:, poi_mod.U3],
+         p[:, poi_mod.V3], p[:, poi_mod.W3], r[:, :6], _np(table.e),
+         _np(table.sr)])
+    _write_csv(path, cols, data, delimiter)
+
+
+def load_table_3d(path: str, delimiter: str = ",",
+                  device: DeviceLike = None) -> poi_mod.POITable3D:
+    """Parse a DVC result table; tolerates files without the strain and
+    subset-radius columns."""
+    raw = _read_csv(path, delimiter)
+    n, ncols = raw.shape
+    p = np.zeros((n, 12), np.float32)
+    p[:, poi_mod.U3] = raw[:, 3]
+    p[:, poi_mod.V3] = raw[:, 4]
+    p[:, poi_mod.W3] = raw[:, 5]
+    r = np.zeros((n, 7), np.float32)
+    r[:, :3] = raw[:, 6:9]
+    if ncols > 9:
+        r[:, 3] = raw[:, 9]
+    if ncols > 11:
+        r[:, 4:6] = raw[:, 10:12]
+    e = np.zeros((n, 6), np.float32)
+    if ncols >= 18:
+        e[:] = raw[:, 12:18]
+    return poi_mod.table_from_numpy_3d(
+        raw[:, 0], raw[:, 1], raw[:, 2], p, r, e, np.zeros((n, 3), np.float32),
+        device)
+
+
+_MAP_VARS_3D = {
+    "u": lambda t: _np(t.p)[:, poi_mod.U3],
+    "v": lambda t: _np(t.p)[:, poi_mod.V3],
+    "w": lambda t: _np(t.p)[:, poi_mod.W3],
+    "zncc": lambda t: _np(t.r)[:, poi_mod.R3_ZNCC],
+    "iteration": lambda t: _np(t.r)[:, poi_mod.R3_ITER],
+    "deformation_increment": lambda t: _np(t.r)[:, poi_mod.R3_CONV],
+    "feature": lambda t: _np(t.r)[:, poi_mod.R3_FEAT],
+    "exx": lambda t: _np(t.e)[:, 0],
+    "eyy": lambda t: _np(t.e)[:, 1],
+    "ezz": lambda t: _np(t.e)[:, 2],
+    "exy": lambda t: _np(t.e)[:, 3],
+    "eyz": lambda t: _np(t.e)[:, 4],
+    "ezx": lambda t: _np(t.e)[:, 5],
+}
+
+
+def save_map_3d(path: str, table: poi_mod.POITable3D, variable: str,
+                dims: Sequence[int], delimiter: str = ",") -> None:
+    """Volume value map (``saveMap3D``, oc_io.cpp:1091-1200): one z-slice per
+    blank-line-separated block.  ``dims`` is (dim_x, dim_y, dim_z)."""
+    dim_x, dim_y, dim_z = (int(d) for d in dims)
+    vals = _MAP_VARS_3D[variable](table)
+    out = np.zeros((dim_z, dim_y, dim_x), np.float32)
+    xs, ys, zs = (a.astype(np.int32) for a in table.coords_numpy())
+    out[zs, ys, xs] = vals
+    with open(path, "w") as f:
+        for z in range(dim_z):
+            for row in out[z]:
+                f.write(_fmt_row(row, delimiter) + "\n")
+            f.write("\n")
+
+
+def save_matrix_bin_3d(path: str, table: poi_mod.POITable3D,
+                       dims: Sequence[int]) -> None:
+    """Compact DVC checkpoint (``saveMatrixBin``, oc_io.cpp:1202-1246):
+    int32[4] {data_length, dim_x, dim_y, dim_z}, then float32 records
+    (x, y, z, u, v, w, zncc, convergence), one per POI."""
+    p = _np(table.p)
+    r = _np(table.r)
+    rec = np.column_stack(
+        [_np(table.x), _np(table.y), _np(table.z), p[:, poi_mod.U3],
+         p[:, poi_mod.V3], p[:, poi_mod.W3], r[:, poi_mod.R3_ZNCC],
+         r[:, poi_mod.R3_CONV]]).astype(np.float32)
+    with open(path, "wb") as f:
+        np.array([rec.size, dims[0], dims[1], dims[2]], np.int32).tofile(f)
+        rec.tofile(f)
+
+
+def load_matrix_bin_3d(path: str):
+    """Returns (records [N, 8] float32, (dim_x, dim_y, dim_z))."""
+    with open(path, "rb") as f:
+        head = np.fromfile(f, np.int32, 4)
+        data = np.fromfile(f, np.float32, int(head[0]))
+    return data.reshape(-1, 8), (int(head[1]), int(head[2]), int(head[3]))
 
 
 def _write_csv(path: str, cols, data: np.ndarray, delim: str) -> None:

@@ -1,8 +1,9 @@
-"""Common base for the 2D DIC modules.
+"""Common base for the DIC and DVC modules.
 
-Mirrors the abstract ``DIC`` class (``oc_dic.h:43-64``): a module holds the
-reference and target images and the subset radii, and exposes ``prepare()``
-and ``compute(poi_table)``.  ``compute`` returns a new POI table.
+Mirrors the abstract ``DIC`` and ``DVC`` classes (``oc_dic.h:43-86``): a
+module holds the reference and target images (volumes) and the subset
+radii, and exposes ``prepare()`` and ``compute(poi_table)``.  ``compute``
+returns a new POI table.
 
 ``chunk_size`` bounds device memory: the queue is processed in fixed-size
 chunks, the last one padded with replicas of the final POI, and the padding
@@ -16,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.poi import POITable2D
+from ..data.poi import POITable2D, POITable3D
 from ..utils.precision import DeviceLike, resolve_device
 
 # ZNCC failure codes (oc_dic.h:28-34).
@@ -32,10 +33,10 @@ def _pad_edge(a: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])])
 
 
-def chunked(fn, table: POITable2D, chunk_size: Optional[int], *extras):
+def chunked(fn, table, chunk_size: Optional[int], *extras):
     """Apply ``fn(sub_table, *sub_extras) -> sub_table`` over fixed-size POI
-    chunks.  ``extras`` are per-POI tensors (leading axis = queue length)
-    padded and sliced alongside the table."""
+    chunks of a 2D or 3D table.  ``extras`` are per-POI tensors (leading
+    axis = queue length) padded and sliced alongside the table."""
     n = table.n
     if chunk_size is None or n <= chunk_size:
         return fn(table, *extras)
@@ -47,9 +48,8 @@ def chunked(fn, table: POITable2D, chunk_size: Optional[int], *extras):
     for start in range(0, n + pad, chunk_size):
         cut = lambda a: a[start: start + chunk_size]
         outs.append(fn(table.map(cut), *(cut(a) for a in extras)))
-    fields = [torch.cat([getattr(o, f) for o in outs])[:n]
-              for f in ("x", "y", "p", "r", "e", "sr")]
-    return POITable2D(*fields)
+    return type(table)(*(torch.cat([getattr(o, f) for o in outs])[:n]
+                         for f in table.FIELDS))
 
 
 def budget_chunk(chunk_size: Optional[int], rx: int, ry: int,
@@ -101,10 +101,45 @@ class Module2D:
             raise NotImplementedError(
                 "self-adaptive subsets are not ported yet (a later slice)")
 
-    def _check_table(self, table: POITable2D) -> None:
+    def _check_table(self, table) -> None:
+        if not isinstance(table, self.table_type):
+            raise TypeError(f"{type(self).__name__} takes "
+                            f"{self.table_type.__name__}, got "
+                            f"{type(table).__name__}")
         if table.device != self.device:
             raise ValueError(f"POI table on {table.device}, module on "
                              f"{self.device}")
 
+    table_type = POITable2D
+
     def prepare(self) -> None:  # pragma: no cover - overridden
         pass
+
+
+class Module3D(Module2D):
+    """Base for DVC modules: volume state + subset radii (oc_dic.h:66-86).
+    ``ref_img``/``tar_img`` hold the [Z, Y, X] volumes; ``ref_vol`` and
+    ``tar_vol`` name them as the reference does."""
+
+    table_type = POITable3D
+
+    def __init__(self, subset_radius_x: int, subset_radius_y: int,
+                 subset_radius_z: int, device: DeviceLike = None):
+        super().__init__(subset_radius_x, subset_radius_y, device)
+        self.subset_radius_z = int(subset_radius_z)
+
+    @property
+    def ref_vol(self) -> Optional[torch.Tensor]:
+        return self.ref_img
+
+    @property
+    def tar_vol(self) -> Optional[torch.Tensor]:
+        return self.tar_img
+
+    def set_subset_radii(self, rx: int, ry: int, rz: int) -> None:
+        super().set_subset_radii(rx, ry)
+        self.subset_radius_z = int(rz)
+
+    def set_self_adaptive(self, flag: bool) -> None:
+        if flag:
+            raise NotImplementedError("DVC has no self-adaptive subsets")

@@ -1,4 +1,5 @@
-"""FFTCC module (reference API: ``FFTCC2D``, oc_fftcc.h:54-96)."""
+"""FFTCC modules (reference API: ``FFTCC2D``/``FFTCC3D``,
+oc_fftcc.h:54-96)."""
 
 from __future__ import annotations
 
@@ -44,6 +45,46 @@ class FFTCC2D(base.Module2D):
             for col, val in ((poi_mod.R_U0, p[:, poi_mod.U]),
                              (poi_mod.R_V0, p[:, poi_mod.V]),
                              (poi_mod.R_ZNCC, zncc)):
+                r_new[:, col] = torch.where(valid, val, r[:, col])
+            return t.replace(p=p_new, r=r_new)
+
+        return base.chunked(run, table, self.chunk_size)
+
+
+class FFTCC3D(base.Module3D):
+    """3D FFTCC for DVC (oc_fftcc.cpp:300-437): one batched ``rfftn`` per
+    chunk of 512 POIs.  ``stats`` counts the chunks that ran the exact
+    re-rank."""
+
+    def __init__(self, subset_radius_x: int, subset_radius_y: int,
+                 subset_radius_z: int, chunk_size: Optional[int] = 512,
+                 device: DeviceLike = None):
+        super().__init__(subset_radius_x, subset_radius_y, subset_radius_z,
+                         device)
+        self.chunk_size = chunk_size
+        self.stats = collections.Counter()
+
+    def compute(self, table: poi_mod.POITable3D) -> poi_mod.POITable3D:
+        self._check_table(table)
+        rx, ry, rz = (self.subset_radius_x, self.subset_radius_y,
+                      self.subset_radius_z)
+        cols = (poi_mod.U3, poi_mod.V3, poi_mod.W3)
+
+        def run(t):
+            p, r = t.p, t.r
+            *uvw, zncc, valid = fftcc_ops.fftcc3d(
+                self.ref_vol, self.tar_vol, t.x, t.y, t.z,
+                *(p[:, c] for c in cols), rx=rx, ry=ry, rz=rz,
+                stats=self.stats)
+            p_new = p.clone()
+            for c, val in zip(cols, uvw):
+                p_new[:, c] = val
+            # u0/v0/w0/zncc updated only for processed POIs
+            r_new = r.clone()
+            for col, val in ((poi_mod.R3_U0, p[:, poi_mod.U3]),
+                             (poi_mod.R3_V0, p[:, poi_mod.V3]),
+                             (poi_mod.R3_W0, p[:, poi_mod.W3]),
+                             (poi_mod.R3_ZNCC, zncc)):
                 r_new[:, col] = torch.where(valid, val, r[:, col])
             return t.replace(p=p_new, r=r_new)
 

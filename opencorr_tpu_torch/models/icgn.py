@@ -1,4 +1,5 @@
-"""IC-GN module (reference API: ``ICGN2D1``, oc_icgn.h:45-188)."""
+"""IC-GN modules (reference API: ``ICGN2D1``, ``ICGN3D1``,
+oc_icgn.h:45-188)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,17 @@ from ..data import poi as poi_mod
 from ..ops import bspline, gradient, icgn as icgn_ops
 from ..utils.precision import DeviceLike
 from . import base
+
+# Memory ICGN3D1's automatic chunks may fill on the CPU.  On a card it is a
+# fifth of the card's memory, which leaves room for the volumes and the
+# allocator's slack.
+_CPU_WORKSET_BUDGET = 16 * 2 ** 30
+
+
+def _workset_budget(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1] // 5
+    return _CPU_WORKSET_BUDGET
 
 
 class ICGN2D1(base.Module2D):
@@ -88,6 +100,113 @@ class ICGN2D1(base.Module2D):
             sr = t.sr.clone()
             sr[:, 0] = torch.where(computed, float(rx), t.sr[:, 0])
             sr[:, 1] = torch.where(computed, float(ry), t.sr[:, 1])
+            return t.replace(p=p_out, r=r, sr=sr)
+
+        return base.chunked(run, table, chunk)
+
+
+class ICGN3D1(base.Module3D):
+    """3D first-order IC-GN for DVC (oc_icgn.cpp:1270-1501).
+
+    ``window_margin`` (default 8) evaluates the target through per-POI
+    coefficient windows of half-extent r+margin and the lattice kernel
+    (``eval_mode="lattice"``, the only mode ported); a chunk in which any
+    active sample wobbles past the lattice's D=1 falls back to the exact
+    global eval for that iteration.  ``None`` evaluates every sample
+    through the global coefficient volume.  Volumes too small for the
+    window take the global path.
+
+    ``chunk_size=None`` sizes POI chunks from the working set: about
+    ``WORKSET_ARRAYS_3D`` subset-sized float32 arrays per POI plus its
+    lattice block, within a fifth of the card's memory (16 GiB on the CPU).
+    At r=30 that is 37.5 MB per POI; on an 80 GB card at most 453 POIs a
+    chunk, so 5,733 POIs run as 13 even chunks of 441.  An explicit
+    ``chunk_size`` overrides it.  ``stats``
+    counts chunks, Gauss-Newton iterations, lattice launches and fallback
+    iterations."""
+
+    def __init__(self, subset_radius_x: int, subset_radius_y: int,
+                 subset_radius_z: int, conv_criterion: float = 0.001,
+                 stop_condition: float = 10,
+                 chunk_size: Optional[int] = None,
+                 window_margin: Optional[int] = 8,
+                 eval_mode: str = "lattice", device: DeviceLike = None):
+        super().__init__(subset_radius_x, subset_radius_y, subset_radius_z,
+                         device)
+        if eval_mode != "lattice":
+            raise NotImplementedError(
+                f"ICGN3D1: eval_mode={eval_mode!r} (the TPU's tile-LUT "
+                "layout) is not ported; use 'lattice'")
+        self.conv_criterion = float(conv_criterion)
+        self.stop_condition = float(stop_condition)
+        self.chunk_size = chunk_size
+        self.window_margin = window_margin
+        self.eval_mode = eval_mode
+        self.stats = collections.Counter()
+        self._gx = self._gy = self._gz = None
+        self._coeff = None
+
+    def set_iteration(self, conv_criterion: float, stop_condition: float):
+        self.conv_criterion = float(conv_criterion)
+        self.stop_condition = float(stop_condition)
+
+    def prepare_ref(self) -> None:
+        """Gradient volumes (oc_icgn.cpp:1240-1251)."""
+        self._gx = gradient.gradient_x_3d(self.ref_vol).contiguous()
+        self._gy = gradient.gradient_y_3d(self.ref_vol).contiguous()
+        self._gz = gradient.gradient_z_3d(self.ref_vol).contiguous()
+
+    def prepare_tar(self) -> None:
+        """Prefiltered tricubic coefficient volume (oc_icgn.cpp:1253-1262)."""
+        self._coeff = bspline.tricubic_prepare(self.tar_vol).contiguous()
+
+    def prepare(self) -> None:
+        self.prepare_ref()
+        self.prepare_tar()
+
+    def auto_chunk(self, n: int) -> int:
+        """POIs per chunk for a queue of ``n``: as few chunks as the
+        working-set budget allows, of even length."""
+        sides = [2 * r + 1 for r in (self.subset_radius_x,
+                                     self.subset_radius_y,
+                                     self.subset_radius_z)]
+        s = sides[0] * sides[1] * sides[2]
+        blk = (sides[0] + 5) * (sides[1] + 5) * (sides[2] + 5)
+        per_poi = 4 * (icgn_ops.WORKSET_ARRAYS_3D * s + blk)
+        most = max(1, _workset_budget(self.device) // per_poi)
+        return -(-n // -(-n // most)) if n else most
+
+    def compute(self, table: poi_mod.POITable3D) -> poi_mod.POITable3D:
+        if self._coeff is None:
+            raise RuntimeError("call prepare() before compute()")
+        self._check_table(table)
+        rx, ry, rz = (self.subset_radius_x, self.subset_radius_y,
+                      self.subset_radius_z)
+        margin = self.window_margin
+        if margin is not None:
+            dz, dy, dx = self.ref_vol.shape
+            if min(dx - 2 * rx, dy - 2 * ry, dz - 2 * rz) - 1 < 2 * margin:
+                margin = None  # volume smaller than the window: global path
+        chunk = self.chunk_size or self.auto_chunk(table.n)
+        self.stats["chunks"] += max(1, -(-table.n // chunk))
+        radii = (float(rx), float(ry), float(rz))
+
+        def run(t):
+            p_out, u0, v0, w0, zncc, it, dpn, computed = icgn_ops.icgn3d1(
+                self._gx, self._gy, self._gz, self.ref_vol, self._coeff,
+                t.x, t.y, t.z, t.p, t.r[:, poi_mod.R3_ZNCC],
+                self.conv_criterion, self.stop_condition, rx=rx, ry=ry,
+                rz=rz, window_margin=margin, eval_mode=self.eval_mode,
+                stats=self.stats)
+            r = t.r.clone()
+            r[:, poi_mod.R3_ZNCC] = zncc
+            for col, val in ((poi_mod.R3_U0, u0), (poi_mod.R3_V0, v0),
+                             (poi_mod.R3_W0, w0), (poi_mod.R3_ITER, it),
+                             (poi_mod.R3_CONV, dpn)):
+                r[:, col] = torch.where(computed, val, t.r[:, col])
+            sr = t.sr.clone()
+            for col, rad in enumerate(radii):
+                sr[:, col] = torch.where(computed, rad, t.sr[:, col])
             return t.replace(p=p_out, r=r, sr=sr)
 
         return base.chunked(run, table, chunk)

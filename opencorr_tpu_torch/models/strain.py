@@ -1,4 +1,5 @@
-"""Strain module (reference API: ``Strain``, oc_strain.h:32), 2D tables."""
+"""Strain module (reference API: ``Strain``, oc_strain.h:32), 2D and 3D
+tables."""
 
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ class Strain:
       table (exact-k ``knnSearch`` fallback included); the fits run batched
       on the device.
 
-    ``x``/``y`` are copied to the host once per table (cached on the table)
-    for the neighbor search.
+    The coordinates are copied to the host once per table (cached on the
+    table) for the neighbor search.
     """
 
     def __init__(self, subregion_radius: float = 20.0,
@@ -87,6 +88,19 @@ class Strain:
         to = lambda a: torch.from_numpy(a).to(device)
         return tuple(to(a) for a in (iy, ix, lookup, *st))
 
+    def _grid_3d(self, x, y, z, device):
+        """Grid-path pieces for a 3D point set, or None."""
+        g = strain_ops.detect_grid_3d(x, y, z)
+        if g is None:
+            return None
+        iz, iy, ix, lookup, gz, gy, gx = g
+        st = strain_ops.grid_stencil_3d(gz, gy, gx, self.subregion_radius,
+                                        self.neighbor_number_min)
+        if st is None:
+            return None
+        to = lambda a: torch.from_numpy(a).to(device)
+        return tuple(to(a) for a in (iz, iy, ix, lookup, *st))
+
     def _neighbors(self, search_pts: np.ndarray, device):
         idx, ok, use_radius = strain_ops.neighbor_lists(
             search_pts, search_pts, self.subregion_radius,
@@ -94,30 +108,36 @@ class Strain:
         return tuple(torch.from_numpy(a).to(device)
                      for a in (idx, ok, use_radius))
 
-    def _neighbor_data(self, table: poi_mod.POITable2D):
-        """The neighbor structure of ``table``, memoized on its coordinate
-        tensor so steady-state compute() calls do no host work."""
+    def _neighbor_data(self, table):
+        """The neighbor structure of a 2D or 3D ``table``, memoized on its
+        coordinate tensor so steady-state compute() calls do no host
+        work."""
         params = (self.subregion_radius, self.neighbor_number_min)
         for ref, p, data in self._cache:
             if p == params and ref() is table.x:
                 return data
-        x_np, y_np = table.xy_numpy()
-        grid = self._grid_2d(x_np, y_np, table.device)
+        coords = table.coords_numpy()
+        grid_fn = self._grid_2d if len(coords) == 2 else self._grid_3d
+        grid = grid_fn(*coords, table.device)
         data = (("grid", grid) if grid is not None else
-                ("kdtree", self._neighbors(np.stack([x_np, y_np], axis=-1),
+                ("kdtree", self._neighbors(np.stack(coords, axis=-1),
                                            table.device)))
         self._cache.append((weakref.ref(table.x), params, data))
         if len(self._cache) > 8:
             self._cache.pop(0)
         return data
 
-    def compute(self, table: poi_mod.POITable2D) -> poi_mod.POITable2D:
-        if not isinstance(table, poi_mod.POITable2D):
+    def compute(self, table):
+        """Strain of a 2D (exx, eyy, exy) or 3D (exx, eyy, ezz, exy, eyz,
+        ezx) table."""
+        if not isinstance(table, (poi_mod.POITable2D, poi_mod.POITable3D)):
             raise NotImplementedError(
                 f"Strain: {type(table).__name__} tables are not ported yet")
         if table.device != self.device:
             raise ValueError(f"POI table on {table.device}, Strain on "
                              f"{self.device}")
+        if isinstance(table, poi_mod.POITable3D):
+            return self._compute_3d(table)
         mode, data = self._neighbor_data(table)
         approx = self.approximation
         args = dict(radius=self.subregion_radius,
@@ -145,6 +165,41 @@ class Strain:
             e = strain_ops.strain2d(
                 xs, ys, us, vs, zn, t.x, t.y, t.r[:, poi_mod.R_ZNCC], t.e,
                 idx_c, ok_c, ur_c, **args)
+            return t.replace(e=e)
+
+        return base.chunked(run, table, self._chunk(nb_idx.shape[1]),
+                            nb_idx, nb_ok, use_radius)
+
+    def _compute_3d(self, table: poi_mod.POITable3D) -> poi_mod.POITable3D:
+        """DVC strain (oc_strain.cpp:372-472): grid stencil or k-d tree."""
+        mode, data = self._neighbor_data(table)
+        args = dict(radius=self.subregion_radius,
+                    zncc_threshold=self.zncc_threshold,
+                    neighbor_min=float(self.neighbor_number_min),
+                    approximation=self.approximation)
+        full = (table.x, table.y, table.z, table.p[:, poi_mod.U3],
+                table.p[:, poi_mod.V3], table.p[:, poi_mod.W3],
+                table.r[:, poi_mod.R3_ZNCC])
+
+        def query(t):
+            return (t.x, t.y, t.z, t.r[:, poi_mod.R3_ZNCC], t.e)
+
+        if mode == "grid":
+            iz, iy, ix, lookup, dk, di, dj = data
+
+            def run_g(t, iz_c, iy_c, ix_c):
+                e = strain_ops.strain3d_grid(*full, *query(t), iz_c, iy_c,
+                                             ix_c, lookup, dk, di, dj, **args)
+                return t.replace(e=e)
+
+            return base.chunked(run_g, table, self._chunk(dk.shape[0]), iz,
+                                iy, ix)
+
+        nb_idx, nb_ok, use_radius = data
+
+        def run(t, idx_c, ok_c, ur_c):
+            e = strain_ops.strain3d(*full, *query(t), idx_c, ok_c, ur_c,
+                                    **args)
             return t.replace(e=e)
 
         return base.chunked(run, table, self._chunk(nb_idx.shape[1]),

@@ -1,6 +1,6 @@
-"""Bicubic B-spline interpolation (Z. Pan et al., TAML 6(3):126-130, 2016).
+"""Cubic B-spline interpolation: bicubic 2D, tricubic 3D.
 
-Matches the reference's per-pixel 4x4 coefficient LUT
+2D (Z. Pan et al., TAML 6(3):126-130, 2016) matches the reference's per-pixel 4x4 coefficient LUT
 (``oc_cubic_bspline.cpp:84-132``): for each interior pixel the 4x4 grayscale
 neighborhood Q maps to the polynomial coefficient matrix
 C = flip(BC . Q . BC^T), BC being the fixed basis*control matrix
@@ -8,6 +8,11 @@ C = flip(BC . Q . BC^T), BC being the fixed basis*control matrix
 sum_{k,l} C[k,l] yd^k xd^l (``oc_cubic_bspline.cpp:134-181``).  Out-of-range
 queries (x<1, y<1, x>=W-2, y>=H-2, or NaN) return the -1.0 sentinel the
 refinement kernels use to detect out-of-bounds warps.
+
+3D (J. Yang et al., OLEN 136:106323, 2021): a global separable 15-tap
+symmetric prefilter along x, y and z with edge clamping (taps
+``oc_cubic_bspline.h:80-90``), then a 4x4x4 basis-function evaluation per
+query (``oc_cubic_bspline.cpp:353-405``), with the same -1 sentinel.
 """
 
 from __future__ import annotations
@@ -25,6 +30,26 @@ BC_MATRIX = np.array(
     ],
     dtype=np.float32,
 )
+
+
+# Symmetric prefilter taps b0..b7 from oc_cubic_bspline.h:80-90.
+BSPLINE_PREFILTER = np.array(
+    [
+        1.732176555412860,
+        -0.464135309171000,
+        0.124364681271139,
+        -0.033323415913556,
+        0.008928982383084,
+        -0.002392513618779,
+        0.000641072092032,
+        -0.000171774749350,
+    ],
+    dtype=np.float32,
+)
+
+# Samples per slab of the global tricubic eval: its [slab, 64] tap gather
+# is the transient that bounds memory.
+TRICUBIC_SLAB = 1 << 20
 
 
 def _below(bound: int) -> float:
@@ -78,4 +103,94 @@ def bicubic_eval(lut: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
     py = torch.stack([one, yd, yd * yd, yd * yd * yd], dim=-1)
     c = lut[yi, xi]  # [..., 4, 4]
     val = torch.einsum("...kl,...k,...l->...", c, py, px)
+    return torch.where(oob, torch.full_like(val, -1.0), val), oob
+
+
+def _prefilter_axis(vol: torch.Tensor, axis: int) -> torch.Tensor:
+    """15-tap symmetric convolution with edge clamping along one axis
+    (oc_cubic_bspline.cpp:223-351).  The reference clamps only the outward
+    side of the stencil near each edge, which clamping both shifted index
+    arrays reproduces: for interior points no clamp fires."""
+    n = vol.shape[axis]
+    idx = torch.arange(n, device=vol.device)
+    out = float(BSPLINE_PREFILTER[0]) * vol
+    for t in range(1, 8):
+        lo = torch.clamp(idx - t, 0, n - 1)
+        hi = torch.clamp(idx + t, 0, n - 1)
+        out = out + float(BSPLINE_PREFILTER[t]) * (
+            vol.index_select(axis, lo) + vol.index_select(axis, hi))
+    return out
+
+
+def tricubic_prepare(vol: torch.Tensor) -> torch.Tensor:
+    """Prefiltered coefficient volume [Z, Y, X] (oc_cubic_bspline.cpp:
+    214-351), filtered along x, then y, then z as the reference does."""
+    coeff = _prefilter_axis(vol, 2)
+    coeff = _prefilter_axis(coeff, 1)
+    return _prefilter_axis(coeff, 0)
+
+
+def basis4(d: torch.Tensor):
+    """The four cubic B-spline basis values of fractional parts ``d``
+    (oc_cubic_bspline.cpp:35-53), each rounded in the JAX package's order;
+    ``csrc/lattice3d.cu`` repeats these roundings."""
+    sixth = 1.0 / 6.0
+    return [sixth * (d * (d * (-d + 3.0) - 3.0) + 1.0),
+            sixth * (d * d * (3.0 * d - 6.0) + 4.0),
+            sixth * (d * (d * (-3.0 * d + 3.0) + 3.0) + 1.0),
+            sixth * (d * d * d)]
+
+
+def _basis(d: torch.Tensor) -> torch.Tensor:
+    return torch.stack(basis4(d), dim=-1)
+
+
+def tricubic_eval(coeff: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                  zs: torch.Tensor, slab: int = TRICUBIC_SLAB):
+    """Evaluate the tricubic spline at float coords; -1 sentinel outside
+    [1, dim-2) on any axis or for NaN (oc_cubic_bspline.cpp:353-405).
+    Returns ``(value, oob)``.
+
+    The 64 taps of every sample are gathered from the global coefficient
+    volume.  More than ``2 * slab`` samples are evaluated ``slab`` at a
+    time, which bounds the [slab, 64] gather transient (1M samples: about
+    1 GB with its indices and weights)."""
+    shp = xs.shape
+    xs, ys, zs = xs.reshape(-1), ys.reshape(-1), zs.reshape(-1)
+    size = xs.shape[0]
+    if size <= 2 * slab:
+        val, oob = _tricubic_eval_impl(coeff, xs, ys, zs)
+        return val.reshape(shp), oob.reshape(shp)
+    val = torch.empty_like(xs)
+    oob = torch.empty(size, dtype=torch.bool, device=xs.device)
+    for s0 in range(0, size, slab):
+        sl = slice(s0, s0 + slab)
+        val[sl], oob[sl] = _tricubic_eval_impl(coeff, xs[sl], ys[sl], zs[sl])
+    return val.reshape(shp), oob.reshape(shp)
+
+
+def _tricubic_eval_impl(coeff, xs, ys, zs):
+    dz, dy, dx = coeff.shape
+    oob = ((xs < 1) | (ys < 1) | (zs < 1)
+           | (xs >= dx - 2) | (ys >= dy - 2) | (zs >= dz - 2)
+           | torch.isnan(xs) | torch.isnan(ys) | torch.isnan(zs))
+    xq = torch.nan_to_num(xs, nan=1.0).clamp(1.0, _below(dx - 2))
+    yq = torch.nan_to_num(ys, nan=1.0).clamp(1.0, _below(dy - 2))
+    zq = torch.nan_to_num(zs, nan=1.0).clamp(1.0, _below(dz - 2))
+    xi = torch.floor(xq).to(torch.int64)
+    yi = torch.floor(yq).to(torch.int64)
+    zi = torch.floor(zq).to(torch.int64)
+    bx = _basis(xq - xi.to(torch.float32))  # [P, 4]
+    by = _basis(yq - yi.to(torch.float32))
+    bz = _basis(zq - zi.to(torch.float32))
+    off = torch.arange(-1, 3, device=xs.device)
+    zidx = zi[:, None] + off
+    yidx = yi[:, None] + off
+    xidx = xi[:, None] + off
+    lin = ((zidx[:, :, None, None] * dy + yidx[:, None, :, None]) * dx
+           + xidx[:, None, None, :]).reshape(-1, 64)
+    nb = coeff.reshape(-1)[lin]  # [P, 64]
+    w = (bz[:, :, None, None] * by[:, None, :, None]
+         * bx[:, None, None, :]).reshape(-1, 64)
+    val = torch.sum(nb * w, dim=-1)
     return torch.where(oob, torch.full_like(val, -1.0), val), oob

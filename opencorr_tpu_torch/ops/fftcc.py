@@ -9,8 +9,8 @@ argmax of the circular correlation is unwrapped to a signed displacement
 (:246-266); ZNCC = peak / (|ref| |tar|) (:274).  POIs whose window would
 cross the image edge are skipped (:190-196; deformation left unchanged).
 
-All windows are cut at once by the gather kernel and one batched
-``rfft2``/``irfft2`` handles the queue.
+All windows are cut at once (2D: by the gather kernel) and one batched
+``rfft2``/``irfft2`` (3D: ``rfftn``/``irfftn``) handles the queue.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from .gather2d import gather_windows_2d
+from .window3d import gather_windows_3d
 
 _NCAND = 16  # f32 peak candidates re-scored exactly
 
@@ -151,3 +152,125 @@ def fftcc2d(ref_img: torch.Tensor, tar_img: torch.Tensor, xs: torch.Tensor,
     zncc = peak / torch.sqrt(ref_norm * tar_norm)
     return (torch.where(valid, u_out, u_in), torch.where(valid, v_out, v_in),
             zncc, valid)
+
+
+_NCAND_3D = 8  # f32 peak candidates re-scored exactly in 3D
+
+
+def fftcc3d(ref_vol: torch.Tensor, tar_vol: torch.Tensor, xs: torch.Tensor,
+            ys: torch.Tensor, zs: torch.Tensor, u_in: torch.Tensor,
+            v_in: torch.Tensor, w_in: torch.Tensor, *, rx: int, ry: int,
+            rz: int, stats: Optional[collections.Counter] = None):
+    """3D FFTCC (oc_fftcc.cpp:327-427).  Returns (u, v, w, zncc, valid);
+    invalid POIs keep their inputs.
+
+    Windows that would cross the volume edge are skipped, as in 2D (the
+    reference's 3D path has no guard; a clipped window would correlate the
+    wrong voxels).  Integral volumes get an exact re-rank of the top-8 f32
+    peaks, on every POI (3D has no near-tie gate): the integer correlation
+    reaches (2r)^3 * 255^2 (about 1.4e10 at r=30), past int32, so each
+    product is split hi/lo (p = 256*(p>>8) + (p&0xFF), exact in two's
+    complement), the two partial sums are carry-normalised and compared
+    lexicographically, and exact ties take the first flat index in scan
+    order (the reference's strict-> first-max loop).  ``torch.sum`` of
+    int32 returns int64; under the range guards both sums fit int32
+    anyway, so the numbers are the JAX package's.  ``stats``, when given,
+    counts the computes that ran the re-rank."""
+    count = stats if stats is not None else collections.Counter()
+    dz, dy, dx = ref_vol.shape
+    n = xs.shape[0]
+    wx, wy, wz = 2 * rx, 2 * ry, 2 * rz
+    v = wz * wy * wx
+    i32 = torch.int32
+
+    xi, yi, zi = xs.to(i32), ys.to(i32), zs.to(i32)  # C truncation
+    txi = (xs + u_in).to(i32)
+    tyi = (ys + v_in).to(i32)
+    tzi = (zs + w_in).to(i32)
+    valid = ((xi >= rx) & (xi < dx - rx) & (yi >= ry) & (yi < dy - ry)
+             & (zi >= rz) & (zi < dz - rz)
+             & (txi >= rx) & (txi < dx - rx) & (tyi >= ry) & (tyi < dy - ry)
+             & (tzi >= rz) & (tzi < dz - rz))
+
+    ref_w = gather_windows_3d(
+        ref_vol, (zi - rz).clamp(0, dz - wz), (yi - ry).clamp(0, dy - wy),
+        (xi - rx).clamp(0, dx - wx), wz, wy, wx)
+    tar_w = gather_windows_3d(
+        tar_vol, (tzi - rz).clamp(0, dz - wz), (tyi - ry).clamp(0, dy - wy),
+        (txi - rx).clamp(0, dx - wx), wz, wy, wx)
+
+    dims = (1, 2, 3)
+    ref_zm = ref_w - ref_w.mean(dim=dims, keepdim=True)
+    tar_zm = tar_w - tar_w.mean(dim=dims, keepdim=True)
+    ref_norm = torch.sum(ref_zm * ref_zm, dim=dims)
+    tar_norm = torch.sum(tar_zm * tar_zm, dim=dims)
+
+    spec = (torch.conj(torch.fft.rfftn(ref_zm, dim=dims))
+            * torch.fft.rfftn(tar_zm, dim=dims))
+    corr = torch.fft.irfftn(spec, s=(wz, wy, wx), dim=dims)
+    del spec
+    flat = corr.reshape(n, v)
+    idx = torch.argmax(flat, dim=1)  # first maximum, like the reference
+
+    ri = torch.round(ref_w)
+    ti = torch.round(tar_w)
+    is_int = ((ref_w == ri).reshape(n, v).all(dim=1)
+              & (tar_w == ti).reshape(n, v).all(dim=1))
+    # Partial-sum range guards: v * (max|p|/256 + 1) bounds the hi sum and
+    # v * 255 the lo sum (negative products leave p & 0xFF up to 255).
+    cap = ri.abs().amax(dim=dims) * ti.abs().amax(dim=dims)
+    is_int = is_int & (v * (cap / 256.0 + 1.0) < 0.99 * 2.0 ** 31)
+    if v * 255.0 >= 0.99 * 2.0 ** 31:
+        is_int = torch.zeros_like(is_int)
+    if bool(is_int.any()):
+        count["rerank"] += 1
+        idx = torch.where(is_int, _rerank3d(ri.reshape(n, v).to(i32),
+                                            ti.reshape(n, v).to(i32),
+                                            flat, wz, wy, wx), idx)
+
+    peak = torch.gather(flat, 1, idx[:, None])[:, 0]
+    du = idx % wx
+    dv = (idx // wx) % wy
+    dw = idx // (wx * wy)
+    du = torch.where(du > rx, du - wx, du)
+    dv = torch.where(dv > ry, dv - wy, dv)
+    dw = torch.where(dw > rz, dw - wz, dw)
+
+    u_out = du.to(torch.float32) + u_in
+    v_out = dv.to(torch.float32) + v_in
+    w_out = dw.to(torch.float32) + w_in
+    zncc = peak / torch.sqrt(ref_norm * tar_norm)
+    return (torch.where(valid, u_out, u_in), torch.where(valid, v_out, v_in),
+            torch.where(valid, w_out, w_in), zncc, valid)
+
+
+def _rerank3d(ri: torch.Tensor, ti: torch.Tensor, flat: torch.Tensor,
+              wz: int, wy: int, wx: int) -> torch.Tensor:
+    """Exact hi/lo integer scores of the top-8 f32 peaks ([N, V] int32
+    operands); the winner is the smallest flat index among the
+    best-scoring candidates."""
+    v = wz * wy * wx
+    cand = torch.topk(flat, _NCAND_3D, dim=1).indices  # [N, 8]
+    lin = torch.arange(v, device=flat.device)
+    zz = lin // (wy * wx)
+    yy = (lin // wx) % wy
+    xx = lin % wx
+    his, los = [], []
+    for j in range(_NCAND_3D):
+        c = cand[:, j: j + 1]
+        src = (((zz + c // (wx * wy)) % wz) * (wy * wx)
+               + ((yy + (c // wx) % wy) % wy) * wx
+               + (xx + c % wx) % wx)
+        p = ri * torch.gather(ti, 1, src)  # |p| <= 255^2 < 2^31
+        del src
+        hi = torch.sum(p >> 8, dim=1)
+        lo = torch.sum(p & 0xFF, dim=1)
+        his.append(hi + (lo >> 8))  # carry-normalise: lo in [0, 255]
+        los.append(lo & 0xFF)
+    his = torch.stack(his, dim=1)
+    los = torch.stack(los, dim=1)
+    sel1 = his == his.max(dim=1, keepdim=True).values
+    best_lo = torch.where(sel1, los, torch.full_like(los, -2 ** 31)).max(
+        dim=1, keepdim=True).values
+    sel = sel1 & (los == best_lo)
+    return torch.where(sel, cand, torch.full_like(cand, v)).min(dim=1).values

@@ -1,4 +1,4 @@
-"""4th-order-accurate first-derivative maps.
+"""4th-order-accurate first-derivative maps of images and volumes.
 
 Reference: ``oc_gradient.cpp`` -- central difference with stencil +-2 px and
 coefficients 1/12, 2/3 (oc_gradient.cpp:21-22), border 2 px left at zero.
@@ -26,3 +26,22 @@ def gradient_y_2d(img: torch.Tensor) -> torch.Tensor:
     g = ((img[:-4, :] - img[4:, :]) * FIRST
          + (img[3:-1, :] - img[1:-3, :]) * SECOND)
     return F.pad(g, (0, 0, 2, 2))
+
+
+def gradient_x_3d(vol: torch.Tensor) -> torch.Tensor:
+    """d/dx over a [Z, Y, X] volume, zero 2-voxel borders
+    (oc_gradient.cpp:143-171)."""
+    g = ((vol[:, :, :-4] - vol[:, :, 4:]) * FIRST
+         + (vol[:, :, 3:-1] - vol[:, :, 1:-3]) * SECOND)
+    return F.pad(g, (2, 2))
+
+
+def gradient_y_3d(vol: torch.Tensor) -> torch.Tensor:
+    g = ((vol[:, :-4, :] - vol[:, 4:, :]) * FIRST
+         + (vol[:, 3:-1, :] - vol[:, 1:-3, :]) * SECOND)
+    return F.pad(g, (0, 0, 2, 2))
+
+
+def gradient_z_3d(vol: torch.Tensor) -> torch.Tensor:
+    g = ((vol[:-4] - vol[4:]) * FIRST + (vol[3:-1] - vol[1:-3]) * SECOND)
+    return F.pad(g, (0, 0, 0, 0, 2, 2))

@@ -1,5 +1,5 @@
-"""Batched inverse-compositional Gauss-Newton (IC-GN) refinement, 2D first
-order.
+"""Batched inverse-compositional Gauss-Newton (IC-GN) refinement: 2D first
+order (``icgn2d``) and 3D first order (``icgn3d1``, at the end).
 
 Reference semantics: ``oc_icgn.cpp`` -- per POI: entry guard (bounds / NaN /
 prior failure -> ZNCC -3, oc_icgn.cpp:160-167); reference subset and its
@@ -30,6 +30,8 @@ import torch
 from . import bspline, linalg as linalg_ops, warp as warp_ops
 from .gather2d import gather_windows_2d
 from .lattice2d import lattice_eval_2d
+from .lattice3d import lattice_eval_3d
+from .window3d import gather_windows_3d
 
 # Queue width above which the GN loop runs two-phase: full width until
 # <= 1/4 of the POIs are active, then a compacted quarter-width tail.
@@ -404,3 +406,271 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
         valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
         zncc_guard)
     return p_out, u_in, v_in, zncc_out, it, dpn, computed
+
+
+# --- DVC -------------------------------------------------------------------
+
+# Per-POI working set of icgn3d1 in subset-sized float32 arrays: the 12
+# steepest-descent channels and the reference subset, plus the warped
+# coordinates, their window-local parts, offsets, masks and the
+# interpolated values of one iteration.  ICGN3D1's chunk budget divides by
+# it; the peak measured on the card at r=30 was 33 such arrays a POI.
+WORKSET_ARRAYS_3D = 40
+
+
+def _lattice_eval3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
+                    margin, count):
+    """The windowed lattice eval of icgn3d1 (JAX ``icgn.py:899-1041``).
+
+    Per-POI coefficient windows of half-extent r+margin sit on the seeded
+    center; a sample leaving its window, or the volume, reads -1.  Every
+    iteration cuts a D=1 block from the window (padded by 1+D zeros per
+    side) at a base taken from the center sample and evaluates all samples
+    with the lattice kernel.  When any active, non-doomed sample wobbles
+    past D, the whole chunk is evaluated through the global coefficient
+    volume instead, as the JAX package does."""
+    dz_, dy_, dx_ = coeff.shape
+    dev = coeff.device
+    n = xs.shape[0]
+    sx, sy, sz = 2 * rx + 1, 2 * ry + 1, 2 * rz + 1
+    s = sx * sy * sz
+    mx, my, mz = rx + margin, ry + margin, rz + margin
+    swx, swy, swz = 2 * mx + 1, 2 * my + 1, 2 * mz + 1
+    wcx = torch.clamp(torch.floor(xs + u_in).to(_I32) - mx, 0, dx_ - swx)
+    wcy = torch.clamp(torch.floor(ys + v_in).to(_I32) - my, 0, dy_ - swy)
+    wcz = torch.clamp(torch.floor(zs + w_in).to(_I32) - mz, 0, dz_ - swz)
+    fdt = coeff.dtype
+    wcxf, wcyf, wczf = (a.to(fdt)[:, None] for a in (wcx, wcy, wcz))
+    D = 1
+    pw = 1 + D
+    wlat = 4 + 2 * D
+    elx, ely, elz = sx + wlat - 1, sy + wlat - 1, sz + wlat - 1
+    iix = torch.arange(sx, dtype=_I32, device=dev)
+    iiy = torch.arange(sy, dtype=_I32, device=dev)[:, None]
+    iiz = torch.arange(sz, dtype=_I32, device=dev)[:, None, None]
+    two = torch.full((), 2.0, dtype=fdt, device=dev)
+    neg = torch.full((), -1, dtype=_I32, device=dev)
+
+    def block(b0, wc, sw, el, dim):
+        """Volume coordinates [N, el] of a block at padded-window base
+        ``b0``, clamped into the volume, and whether each lies inside the
+        window (the zero padding outside it)."""
+        local = b0.long()[:, None] - pw + torch.arange(el, device=dev)
+        inside = (local >= 0) & (local < sw)
+        return (wc.long()[:, None] + local).clamp(0, dim - 1), inside
+
+    def cut_eblk(bz0, by0, bx0):
+        zc, zin = block(bz0, wcz, swz, elz, dz_)
+        yc, yin = block(by0, wcy, swy, ely, dy_)
+        xc, xin = block(bx0, wcx, swx, elx, dx_)
+        vals = coeff[zc[:, :, None, None], yc[:, None, :, None],
+                     xc[:, None, None, :]]
+        inside = (zin[:, :, None, None] & yin[:, None, :, None]
+                  & xin[:, None, None, :])
+        return torch.where(inside, vals, torch.zeros((), device=dev))
+
+    def eval_tar(gxc, gyc, gzc, active):
+        # global range guard: the float comparisons of the global eval
+        oob = ((gxc < 1) | (gyc < 1) | (gzc < 1)
+               | (gxc >= dx_ - 2) | (gyc >= dy_ - 2) | (gzc >= dz_ - 2)
+               | torch.isnan(gxc) | torch.isnan(gyc) | torch.isnan(gzc))
+        lx = torch.where(oob, two, gxc - wcxf)
+        ly = torch.where(oob, two, gyc - wcyf)
+        lz = torch.where(oob, two, gzc - wczf)
+        # integer window-exit test, on values bounded before the cast
+        exf = torch.floor(lx.clamp(-9.0, swx + 9.0)).to(_I32)
+        eyf = torch.floor(ly.clamp(-9.0, swy + 9.0)).to(_I32)
+        ezf = torch.floor(lz.clamp(-9.0, swz + 9.0)).to(_I32)
+        oob |= ((exf < 1) | (exf > swx - 3) | (eyf < 1) | (eyf > swy - 3)
+                | (ezf < 1) | (ezf > swz - 3))
+        shp = (n, sz, sy, sx)
+        xi, yi, zi = exf.reshape(shp), eyf.reshape(shp), ezf.reshape(shp)
+        fx = lx.reshape(shp) - xi.to(fdt)
+        fy = ly.reshape(shp) - yi.to(fdt)
+        fz = lz.reshape(shp) - zi.to(fdt)
+        del lx, ly, lz
+        oob4 = oob.reshape(shp)
+        # lattice base from the center sample, in padded window coords
+        bx0 = torch.clamp(xi[:, rz, ry, rx] + pw - rx - 1 - D, 0,
+                          swx + 2 * pw - elx)
+        by0 = torch.clamp(yi[:, rz, ry, rx] + pw - ry - 1 - D, 0,
+                          swy + 2 * pw - ely)
+        bz0 = torch.clamp(zi[:, rz, ry, rx] + pw - rz - 1 - D, 0,
+                          swz + 2 * pw - elz)
+        # out-of-range samples must contribute nothing: -1 matches no slot
+        pdx = torch.where(oob4, neg, xi + (pw - 1) - bx0[:, None, None, None]
+                          - iix)
+        pdy = torch.where(oob4, neg, yi + (pw - 1) - by0[:, None, None, None]
+                          - iiy)
+        pdz = torch.where(oob4, neg, zi + (pw - 1) - bz0[:, None, None, None]
+                          - iiz)
+        del xi, yi, zi
+        # a POI with any out-of-range sample fails -3 this iteration
+        # whatever its values, and a frozen POI's values are discarded:
+        # neither may send the chunk to the exact fallback
+        doomed = oob4.flatten(1).any(dim=1)
+        live = (~doomed & active)[:, None, None, None]
+        wobble = (((pdx < 0) | (pdx > 2 * D) | (pdy < 0) | (pdy > 2 * D)
+                   | (pdz < 0) | (pdz > 2 * D)) & ~oob4 & live)
+        if bool(wobble.any()):
+            count["fallback"] += 1
+            tval, _ = bspline.tricubic_eval(coeff, gxc, gyc, gzc)
+            return torch.where(oob, torch.full_like(tval, -1.0), tval)
+        del wobble
+        count["lattice"] += 1
+        val = lattice_eval_3d(cut_eblk(bz0, by0, bx0), pdz, pdy, pdx, fz, fy,
+                              fx, d_wobble=D)
+        return torch.where(oob4, torch.full_like(val, -1.0), val).reshape(n,
+                                                                          s)
+
+    return eval_tar
+
+
+def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
+            ref_vol: torch.Tensor, tar_coeff: torch.Tensor, xs: torch.Tensor,
+            ys: torch.Tensor, zs: torch.Tensor, p_in: torch.Tensor,
+            zncc_in: torch.Tensor, conv: float, max_iter: float, *, rx: int,
+            ry: int, rz: int, window_margin: Optional[int] = None,
+            eval_mode: str = "lattice", z_guard_lo=None, z_guard_hi=None,
+            stats: Optional[collections.Counter] = None):
+    """3D first-order IC-GN (oc_icgn.cpp:1270-1490) over a POI queue.
+
+    Returns (p_out [N,12], u0, v0, w0, zncc, iteration, convergence,
+    computed).  ``window_margin`` None evaluates every sample through the
+    global coefficient volume; an int M evaluates through per-POI windows
+    of half-extent r+M and the lattice kernel (:func:`_lattice_eval3d`),
+    where a sample leaving its window reads as out of range (-3).  The
+    convergence norm takes the displacement increments only
+    (oc_icgn.cpp:1445).  ``stats``, when given, counts iterations, lattice
+    launches and fallback iterations.  It computes in the volumes' dtype:
+    float32 as the package runs it, float64 for a reference replay on the
+    CPU."""
+    if eval_mode != "lattice":
+        raise NotImplementedError(
+            f"icgn3d1: eval_mode={eval_mode!r} is the TPU's tile-LUT layout "
+            "and is not ported; the port evaluates with the lattice kernel")
+    if z_guard_lo is not None or z_guard_hi is not None:
+        raise NotImplementedError(
+            "icgn3d1: z guards belong to the sharded DVC path, which is not "
+            "ported yet")
+    dz_, dy_, dx_ = ref_vol.shape
+    dev = ref_vol.device
+    fdt = ref_vol.dtype
+    n = xs.shape[0]
+    sx, sy, sz = 2 * rx + 1, 2 * ry + 1, 2 * rz + 1
+    s = sx * sy * sz
+    count = stats if stats is not None else collections.Counter()
+
+    u_in, v_in, w_in = p_in[:, 0], p_in[:, 4], p_in[:, 8]
+    # Entry guard: subset inside the volume, sane seed, no earlier failure.
+    valid = ((xs - rx >= 0) & (ys - ry >= 0) & (zs - rz >= 0)
+             & (xs + rx <= dx_ - 1) & (ys + ry <= dy_ - 1)
+             & (zs + rz <= dz_ - 1)
+             & (u_in.abs() < dx_) & (v_in.abs() < dy_) & (w_in.abs() < dz_)
+             & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in)
+             & ~torch.isnan(w_in))
+
+    x0 = torch.clamp(xs.to(_I32) - rx, 0, dx_ - sx)  # (int) truncation
+    y0 = torch.clamp(ys.to(_I32) - ry, 0, dy_ - sy)
+    z0 = torch.clamp(zs.to(_I32) - rz, 0, dz_ - sz)
+
+    def subsets(vol):
+        return gather_windows_3d(vol, z0, y0, x0, sz, sy, sx).reshape(n, s)
+
+    # Reference subset and its zero-mean norm.
+    ref_sub = subsets(ref_vol)
+    ref_zm = ref_sub - ref_sub.mean(dim=1, keepdim=True)
+    del ref_sub
+    rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
+
+    # Local grid, x fastest, then y, then z.
+    zg, yg, xg = torch.meshgrid(
+        *(torch.arange(-r, r + 1, dtype=fdt, device=dev)
+          for r in (rz, ry, rx)), indexing="ij")
+    xl, yl, zl = (a.reshape(1, s) for a in (xg, yg, zg))
+
+    # Steepest-descent images in the 3D p order (oc_icgn.cpp:1314-1325),
+    # as [N, 12, S], and the Hessian.
+    sd = torch.empty((n, 12, s), dtype=fdt, device=dev)
+    for a, g in enumerate((gx, gy, gz)):
+        gs = subsets(g)
+        sd[:, 4 * a] = gs
+        for b, m in enumerate((xl, yl, zl)):
+            sd[:, 4 * a + 1 + b] = gs * m
+    del gs
+    hess = torch.bmm(sd, sd.transpose(1, 2))
+    hinv = linalg_ops.inv_small(hess)
+
+    wmat0 = warp_ops.warp3d1_from_p(p_in)
+
+    if window_margin is not None:
+        eval_tar = _lattice_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
+                                   rx=rx, ry=ry, rz=rz, margin=window_margin,
+                                   count=count)
+    else:
+        def eval_tar(gxc, gyc, gzc, active):
+            return bspline.tricubic_eval(tar_coeff, gxc, gyc, gzc)[0]
+
+    def body(state):
+        wmat, active, it, dpn, znssd, oob_fail = state
+
+        def coord(row, c):
+            return c[:, None] + (wmat[:, row, 0, None] * xl
+                                 + wmat[:, row, 1, None] * yl
+                                 + wmat[:, row, 2, None] * zl
+                                 + wmat[:, row, 3, None])
+
+        tval = eval_tar(coord(0, xs), coord(1, ys), coord(2, zs), active)
+        # A negative sample, the -1 sentinel included, fails the POI.
+        fail_now = torch.any(tval < 0.0, dim=1) & active
+
+        tar_zm = tval - tval.mean(dim=1, keepdim=True)
+        del tval
+        tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
+        err = tar_zm * (rn / tn)[:, None] - ref_zm
+        del tar_zm
+        znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
+        num = torch.bmm(sd, err[:, :, None])  # [N, 12, 1]
+        dp = torch.bmm(hinv, num)[:, :, 0]
+        winc = warp_ops.warp3d1_from_p(dp)
+        wmat_new = torch.bmm(wmat, linalg_ops.inv_small(winc))
+        # displacement-only convergence norm (oc_icgn.cpp:1445)
+        dpn_new = torch.sqrt(dp[:, 0] * dp[:, 0] + dp[:, 4] * dp[:, 4]
+                             + dp[:, 8] * dp[:, 8])
+
+        step = active & ~fail_now
+        wmat = torch.where(step[:, None, None], wmat_new, wmat)
+        znssd = torch.where(step, znssd_new, znssd)
+        dpn = torch.where(step, dpn_new, dpn)
+        it = torch.where(step, it + 1.0, it)
+        oob_fail = oob_fail | fail_now
+        active = step & (dpn >= conv) & (it < max_iter)
+        return wmat, active, it, dpn, znssd, oob_fail
+
+    zf = torch.zeros_like(xs)
+    state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
+    while bool(state[1].any()):
+        count["iter"] += 1
+        state = body(state)
+    wmat, _, it, dpn, znssd, oob_fail = state
+
+    computed = valid & ~oob_fail
+    p_new = warp_ops.p_from_warp3d1(wmat)
+    zncc = 0.5 * (2.0 - znssd)
+    # Not-converged code.
+    zncc = torch.where((dpn >= conv) & (it >= max_iter),
+                       torch.full_like(zncc, -4.0), zncc)
+    # NaN code; u, v, w restored to the initial guess.
+    isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, 0])
+             | torch.isnan(p_new[:, 4]) | torch.isnan(p_new[:, 8]))
+    zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
+    for col, orig in ((0, u_in), (4, v_in), (8, w_in)):
+        p_new[:, col] = torch.where(isnan, orig, p_new[:, col])
+
+    p_out = torch.where(computed[:, None], p_new, p_in)
+    zncc_guard = torch.where(zncc_in >= 0, torch.full_like(zncc_in, -3.0),
+                             zncc_in)
+    zncc_out = torch.where(
+        valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
+        zncc_guard)
+    return p_out, u_in, v_in, w_in, zncc_out, it, dpn, computed

@@ -1,8 +1,9 @@
 """Batched small-matrix inverses and solves.
 
 The same unrolled Gauss-Jordan elimination without pivoting as the JAX
-package, so both give the same numbers for the 3x3..6x6 systems of DIC
-(warp inverses, Hessians, strain normal equations).  No pivoting is safe
+package, so both give the same numbers for the 3x3..12x12 systems of DIC
+and DVC (2D and 3D warp inverses, the 6x6 and 12x12 Hessians, strain
+normal equations).  No pivoting is safe
 for every system this engine produces: Hessians and normal equations are
 SPD, warp matrices are near-identity.  A zero pivot yields inf/NaN, which
 the callers' NaN code (-5) handles.

@@ -1,4 +1,4 @@
-"""Batched 2D strain by local first-order polynomial fits.
+"""Batched 2D and 3D strain by local first-order polynomial fits.
 
 Reference: ``oc_strain.cpp`` -- per POI with ZNCC above threshold: collect
 neighbor POIs inside a subregion radius via k-d tree (KNN fallback with
@@ -79,6 +79,79 @@ def grid_stencil_2d(gy: float, gx: float, radius: float, neighbor_min: int):
         di = np.concatenate([di, np.full(pad, big, np.int32)])
         dj = np.concatenate([dj, np.full(pad, big, np.int32)])
     return di, dj
+
+
+def detect_grid_3d(x: np.ndarray, y: np.ndarray, z: np.ndarray):
+    """3D analog of :func:`detect_grid_2d`: returns
+    ``(iz, iy, ix, lookup [D, H, W], gz, gy, gx)`` or None."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    z = np.asarray(z, np.float64)
+    n = x.shape[0]
+    ux, uy, uz = np.unique(x), np.unique(y), np.unique(z)
+    if min(len(ux), len(uy), len(uz)) < 2 or len(ux) * len(uy) * len(uz) != n:
+        return None
+    gx, gy, gz = np.diff(ux)[0], np.diff(uy)[0], np.diff(uz)[0]
+    if min(gx, gy, gz) <= 0 or not (
+        np.allclose(np.diff(ux), gx, rtol=1e-6, atol=1e-6)
+        and np.allclose(np.diff(uy), gy, rtol=1e-6, atol=1e-6)
+        and np.allclose(np.diff(uz), gz, rtol=1e-6, atol=1e-6)
+    ):
+        return None
+    ix = np.searchsorted(ux, x).astype(np.int32)
+    iy = np.searchsorted(uy, y).astype(np.int32)
+    iz = np.searchsorted(uz, z).astype(np.int32)
+    lookup = np.full((len(uz), len(uy), len(ux)), -1, np.int32)
+    lookup[iz, iy, ix] = np.arange(n, dtype=np.int32)
+    if (lookup < 0).any():
+        return None
+    return iz, iy, ix, lookup, float(gz), float(gy), float(gx)
+
+
+def grid_stencil_3d(gz: float, gy: float, gx: float, radius: float,
+                    neighbor_min: int):
+    """3D analog of :func:`grid_stencil_2d`: returns ``(dk, di, dj)`` or
+    None when a corner POI (one octant of the ball) could see fewer than
+    ``neighbor_min`` neighbors."""
+    mj = int(np.ceil(radius / gx))
+    mi = int(np.ceil(radius / gy))
+    mk = int(np.ceil(radius / gz))
+    kk, ii, jj = np.meshgrid(
+        np.arange(-mk, mk + 1), np.arange(-mi, mi + 1),
+        np.arange(-mj, mj + 1), indexing="ij")
+    d2 = (jj * gx) ** 2 + (ii * gy) ** 2 + (kk * gz) ** 2
+    keep = d2 < radius * radius
+    dk = kk[keep].astype(np.int32)
+    di = ii[keep].astype(np.int32)
+    dj = jj[keep].astype(np.int32)
+    corner = len(dk)
+    for sk in (1, -1):
+        for si in (1, -1):
+            for sj in (1, -1):
+                corner = min(corner, int(
+                    ((sk * dk >= 0) & (si * di >= 0) & (sj * dj >= 0)).sum()))
+    if corner < int(neighbor_min):
+        return None
+    pad = (-len(dk)) % 8
+    if pad:
+        big = np.int32(1 << 20)
+        dk = np.concatenate([dk, np.full(pad, big, np.int32)])
+        di = np.concatenate([di, np.full(pad, big, np.int32)])
+        dj = np.concatenate([dj, np.full(pad, big, np.int32)])
+    return dk, di, dj
+
+
+def grid_neighbors_3d(qiz, qiy, qix, lookup, dk, di, dj):
+    """``nb_idx[c, k] = lookup[qiz[c]+dk[k], qiy[c]+di[k], qix[c]+dj[k]]``
+    with border masking, on the device."""
+    d, h, w = lookup.shape
+    nz = qiz[:, None].long() + dk[None, :].long()
+    ny = qiy[:, None].long() + di[None, :].long()
+    nx = qix[:, None].long() + dj[None, :].long()
+    ok = ((nz >= 0) & (nz < d) & (ny >= 0) & (ny < h) & (nx >= 0)
+          & (nx < w))
+    idx = lookup[nz.clamp(0, d - 1), ny.clamp(0, h - 1), nx.clamp(0, w - 1)]
+    return idx, ok
 
 
 def grid_neighbors_2d(qiy, qix, lookup, di, dj):
@@ -213,3 +286,89 @@ def strain2d_grid(xs, ys, us, vs, zncc, qx, qy, qzncc, qe_in, qiy, qix,
     return strain2d(xs, ys, us, vs, zncc, qx, qy, qzncc, qe_in, nb_idx,
                     nb_ok, use_radius, radius, zncc_threshold, neighbor_min,
                     approximation=approximation)
+
+
+def _fit_gradients_3d(dx, dy, dz, nu, nv, nw, wf):
+    """Least-squares fit per query, intercept + x + y + z columns
+    (oc_strain.cpp:303-330, normal equations)."""
+    s0 = torch.sum(wf, dim=1)
+    sx = torch.sum(wf * dx, dim=1)
+    sy = torch.sum(wf * dy, dim=1)
+    sz = torch.sum(wf * dz, dim=1)
+    sxx = torch.sum(wf * dx * dx, dim=1)
+    sxy = torch.sum(wf * dx * dy, dim=1)
+    sxz = torch.sum(wf * dx * dz, dim=1)
+    syy = torch.sum(wf * dy * dy, dim=1)
+    syz = torch.sum(wf * dy * dz, dim=1)
+    szz = torch.sum(wf * dz * dz, dim=1)
+    amat = torch.stack([torch.stack([s0, sx, sy, sz], -1),
+                        torch.stack([sx, sxx, sxy, sxz], -1),
+                        torch.stack([sy, sxy, syy, syz], -1),
+                        torch.stack([sz, sxz, syz, szz], -1)], dim=-2)
+
+    def rhs(val):
+        return torch.stack([torch.sum(wf * val, dim=1),
+                            torch.sum(wf * dx * val, dim=1),
+                            torch.sum(wf * dy * val, dim=1),
+                            torch.sum(wf * dz * val, dim=1)], -1)
+
+    gu = _solve_sym(amat, rhs(nu))
+    gv = _solve_sym(amat, rhs(nv))
+    gw = _solve_sym(amat, rhs(nw))
+    return (gu[:, 1], gu[:, 2], gu[:, 3], gv[:, 1], gv[:, 2], gv[:, 3],
+            gw[:, 1], gw[:, 2], gw[:, 3], s0)
+
+
+def strain3d(xs, ys, zs, us, vs, ws, zncc, qx, qy, qz, qzncc, qe_in,
+             nb_idx, nb_ok, use_radius, radius: float,
+             zncc_threshold: float, neighbor_min: float, *,
+             approximation: int) -> torch.Tensor:
+    """3D strain for a chunk of query POIs against the full cloud
+    (oc_strain.cpp:372-472).  The displacement means are taken over the
+    whole cloud, failed POIs included, as the JAX package does.  Returns
+    the updated [C, 6] strain (exx, eyy, ezz, exy, eyz, ezx)."""
+    nb = nb_idx.long()
+    nu = (us - us.mean())[nb]
+    nv = (vs - vs.mean())[nb]
+    nw = (ws - ws.mean())[nb]
+    nz = zncc[nb]
+    dx = xs[nb] - qx[:, None]
+    dy = ys[nb] - qy[:, None]
+    dz = zs[nb] - qz[:, None]
+
+    r2 = float(np.float32(radius) * np.float32(radius))  # the f32 square
+    strict = dx * dx + dy * dy + dz * dz < r2
+    sel = nb_ok & (strict | ~use_radius[:, None])
+    wf = (sel & (nz >= zncc_threshold)).to(torch.float32)
+
+    (ux, uy, uz, vx, vy, vz, wx, wy, wz, fit_count) = _fit_gradients_3d(
+        dx, dy, dz, nu, nv, nw, wf)
+
+    if approximation == 1:  # Cauchy
+        exx, eyy, ezz = ux, vy, wz
+        exy = 0.5 * (uy + vx)
+        eyz = 0.5 * (vz + wy)
+        ezx = 0.5 * (wx + uz)
+    else:  # Green-Lagrange
+        exx = ux + 0.5 * (ux * ux + vx * vx + wx * wx)
+        eyy = vy + 0.5 * (uy * uy + vy * vy + wy * wy)
+        ezz = wz + 0.5 * (uz * uz + vz * vz + wz * wz)
+        exy = 0.5 * (uy + vx + uy * ux + vy * vx + wy * wx)
+        eyz = 0.5 * (vz + wy + uz * uy + vz * vy + wz * wy)
+        ezx = 0.5 * (wx + uz + ux * uz + vx * vz + wx * wz)
+
+    do = (qzncc >= zncc_threshold) & (fit_count >= neighbor_min)
+    e_new = torch.stack([exx, eyy, ezz, exy, eyz, ezx], dim=-1)
+    return torch.where(do[:, None], e_new, qe_in)
+
+
+def strain3d_grid(xs, ys, zs, us, vs, ws, zncc, qx, qy, qz, qzncc, qe_in,
+                  qiz, qiy, qix, lookup, dk, di, dj, radius, zncc_threshold,
+                  neighbor_min, *, approximation: int) -> torch.Tensor:
+    """Grid path for DVC strain: neighbor indices from the offset
+    stencil."""
+    nb_idx, nb_ok = grid_neighbors_3d(qiz, qiy, qix, lookup, dk, di, dj)
+    use_radius = torch.ones(qx.shape, dtype=torch.bool, device=qx.device)
+    return strain3d(xs, ys, zs, us, vs, ws, zncc, qx, qy, qz, qzncc, qe_in,
+                    nb_idx, nb_ok, use_radius, radius, zncc_threshold,
+                    neighbor_min, approximation=approximation)

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the port's DVC path on one GPU.
+
+Run from the root of the repository:
+
+    python3 profile_torch_dvc.py
+
+It builds the CUDA kernels, makes ``chip_smoke.py``'s 700x100x100 speckle
+volume pair, warms the path up on 512 POIs, then runs FFTCC3D(30) ->
+ICGN3D1(30, 0.001, 10) -> Strain(30, 10) on the 5,733 POIs of the
+al_foam4 grid under ``torch.profiler``.  It prints, per
+stage, the host wall time, the device time of the kernels launched in it
+(their sum over the wall time is the device's busy share) and the kernels
+that took the most of it, as JSON lines, the card's name and power limit
+before the last line.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import sys
+import time
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not torch.cuda.is_available():
+        print("profile_torch_dvc: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import chip_smoke as cs
+    import opencorr_tpu_torch as ot
+    from opencorr_tpu_torch.ops import _kernels
+
+    _kernels.build(["gather2d", "lattice2d", "lattice3d"])
+    ref, tar = (ot.Image3D.from_array(v) for v in cs.speckle_volumes(seed=2))
+    pois = ot.poi_grid_3d((35, 35, 60), 7, 7, 117, 5)
+    cs.run_dvc(torch, ot, ref, tar, pois.map(lambda a: a[:512]), "cuda")
+    r = cs.DVC_R
+    fftcc = ot.FFTCC3D(r, r, r)
+    fftcc.set_images(ref, tar)
+    icgn = ot.ICGN3D1(r, r, r, 0.001, 10)
+    icgn.set_images(ref, tar)
+    icgn.prepare()
+    strain = ot.Strain(r, 10)
+    torch.cuda.synchronize()
+
+    stages = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        table = pois
+        for name, fn in (("fftcc3d", fftcc.compute), ("icgn3d1", icgn.compute),
+                         ("strain", strain.compute)):
+            t0 = time.perf_counter()
+            with record_function(f"stage:{name}"):
+                table = fn(table)
+                torch.cuda.synchronize()
+            stages[name] = (time.perf_counter() - t0) * 1e3
+
+    events = prof.events()
+    on_device = lambda e: str(e.device_type).endswith("CUDA")
+    # the stage ranges on the host, and the kernels (the device events that
+    # are not the ranges' own device-side annotations)
+    ranges = {e.name[6:]: e for e in events
+              if e.name.startswith("stage:") and not on_device(e)}
+    kernels = [e for e in events
+               if on_device(e) and not e.name.startswith("stage:")]
+    out = {}
+    for name, wall in stages.items():
+        t0, t1 = ranges[name].time_range.start, ranges[name].time_range.end
+        mine = [k for k in kernels if t0 <= k.time_range.start <= t1]
+        busy = sum(k.time_range.elapsed_us() for k in mine) / 1e3
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for k in mine:
+            by_name[k.name][0] += k.time_range.elapsed_us() / 1e3
+            by_name[k.name][1] += 1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        out[name] = dict(
+            wall_ms=wall, device_ms=busy,
+            busy_share=busy / wall if wall else None, kernels=len(mine),
+            top=[dict(name=k[:120], device_ms=v[0], launches=v[1],
+                      share=v[0] / busy if busy else None)
+                 for k, v in top])
+    for name, rec in out.items():
+        print(json.dumps({"stage": name, "pois": pois.n, **rec}), flush=True)
+    print(json.dumps({"icgn_stats": dict(icgn.stats),
+                      "fftcc_stats": dict(fftcc.stats)}), flush=True)
+    print(cs.card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,14 +5,15 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Gather: bit-exact, corners clamped into the image.  Lattice: within
-1e-6 x max|eblk|, and exactly 0 where a placement offset is out of range."""
+Gather: bit-exact, corners clamped into the image.  Lattice (2D and 3D):
+within 1e-6 x max|eblk|, and exactly 0 where a placement offset is out of
+range.  The DVC modules: cuda against cpu on a small pair."""
 
 import numpy as np
 import pytest
 import torch
 
-from opencorr_tpu_torch.ops import gather2d, lattice2d
+from opencorr_tpu_torch.ops import gather2d, lattice2d, lattice3d
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and torch's CPU thread pools stall when they oversubscribe the cores.
@@ -52,6 +53,30 @@ def _lattice_inputs(n, s, d, seed):
 
 def _out_of_range(dy, dx, d):
     return (dy < 0) | (dy > 2 * d) | (dx < 0) | (dx > 2 * d)
+
+
+def _lattice3d_inputs(n, s, d, seed):
+    """eblk [n, s+w-1, ...] and the six [n, s, s, s] sample arrays at
+    wobble ``d``, with out-of-range offsets (-1 and 2d+1, and far ones)
+    injected on every axis."""
+    rng = np.random.default_rng(seed)
+    e = s + 3 + 2 * d
+    eblk = np.round(rng.uniform(0, 255, (n, e, e, e))).astype(np.float32)
+    offs = []
+    for far in ((-4, 30), (-2, 77), (-9, 5 + 2 * d)):
+        a = rng.integers(0, 2 * d + 1, (n, s, s, s)).astype(np.int32)
+        bad = rng.uniform(size=a.shape) < 0.05
+        a[bad] = rng.choice([-1, 2 * d + 1, *far], bad.sum())
+        offs.append(a)
+    fracs = [rng.uniform(0, 1, (n, s, s, s)).astype(np.float32)
+             for _ in range(3)]
+    fracs[2][0, 0, 0, :4] = [0.0, np.float32(np.nextafter(1, 0)), 0.5, 0.25]
+    return (eblk, *offs, *fracs)
+
+
+def _out_of_range_3d(dz, dy, dx, d):
+    return ((dz < 0) | (dz > 2 * d) | (dy < 0) | (dy > 2 * d) | (dx < 0)
+            | (dx > 2 * d))
 
 
 @pytest.fixture
@@ -100,3 +125,86 @@ def test_kernel_wrappers_refuse_bad_tensors(cuda):
     c32 = torch.zeros(3, dtype=torch.int32)  # on the CPU
     with pytest.raises(ValueError):
         gather2d.gather_windows_2d(img, c32, c32, sh=4, sw=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,s", [(1, 6, 61), (1, 40, 17), (2, 5, 33)])
+def test_lattice3d_kernel_vs_plain(cuda, d, n, s):
+    """The main path's 61^3 shape and two others; bit-equal to the plain
+    version (the same roundings in the same order), 0 out of range."""
+    arrs = [torch.from_numpy(a) for a in _lattice3d_inputs(n, s, d, seed=s)]
+    before = lattice3d.lattice_eval_3d.launches
+    got = lattice3d.lattice_eval_3d(*(a.to(cuda) for a in arrs), d_wobble=d)
+    want = lattice3d.lattice_eval_3d_plain(*(a.to(cuda) for a in arrs),
+                                           d_wobble=d)
+    torch.cuda.synchronize()
+    assert lattice3d.lattice_eval_3d.launches == before + 1
+    bad = _out_of_range_3d(*arrs[1:4], d).to(cuda)
+    assert bad.any() and (got[bad] == 0).all()
+    tol = 1e-6 * float(arrs[0].abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_lattice3d_wrapper_refuses_bad_tensors(cuda):
+    arrs = [torch.from_numpy(a).to(cuda)
+            for a in _lattice3d_inputs(2, 5, 1, seed=0)]
+    with pytest.raises(ValueError):
+        lattice3d.lattice_eval_3d(*arrs, d_wobble=2)  # eblk too small
+    bad = list(arrs)
+    bad[1] = bad[1].to(torch.int64)
+    with pytest.raises(ValueError):
+        lattice3d.lattice_eval_3d(*bad, d_wobble=1)
+    bad = list(arrs)
+    bad[4] = bad[4].cpu()
+    with pytest.raises(ValueError):
+        lattice3d.lattice_eval_3d(*bad, d_wobble=1)
+    bad = list(arrs)
+    bad[5] = bad[5].transpose(1, 3)
+    with pytest.raises(ValueError):
+        lattice3d.lattice_eval_3d(*bad, d_wobble=1)
+
+
+@pytest.mark.cuda
+def test_dvc_modules_cuda_match_cpu(cuda):
+    """FFTCC3D -> ICGN3D1 on cuda (the lattice kernel, and the exact
+    fallback for strained seeds) against the same modules on the cpu."""
+    import opencorr_tpu_torch as ot
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    rng = np.random.default_rng(11)
+    shape = (64, 48, 48)
+    base = gaussian_filter(rng.standard_normal(shape), 1.5)
+    ref = np.clip(np.round(base / base.std() * 28 + 128), 0, 255)
+    zz, yy, xx = np.mgrid[0:64, 0:48, 0:48].astype(np.float64)
+    tar = map_coordinates(ref, [zz - 0.6, yy + 0.3, xx - 0.4], order=3,
+                          mode="nearest")
+    ref, tar = ref.astype(np.float32), np.round(tar).astype(np.float32)
+    seeded = {}
+    for dev in ("cuda", "cpu"):
+        f = ot.FFTCC3D(8, 8, 8, device=dev)
+        f.set_images(ref, tar)
+        seeded[dev] = ot.table_to_numpy(f.compute(ot.poi_grid_3d(
+            (16, 16, 16), 3, 3, 4, 8, device=dev)))
+    np.testing.assert_array_equal(seeded["cuda"]["p"], seeded["cpu"]["p"])
+    s = seeded["cpu"]
+    p = s["p"].copy()
+    p[::4, 11] = 0.25  # strained seeds: the exact fallback
+    outs, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = ot.table_from_numpy_3d(s["x"], s["y"], s["z"], p, s["r"],
+                                   s["e"], s["sr"], device=dev)
+        m = ot.ICGN3D1(8, 8, 8, device=dev)
+        m.set_images(ref, tar)
+        m.prepare()
+        outs[dev] = ot.table_to_numpy(m.compute(t))
+        stats[dev] = dict(m.stats)
+    assert stats["cuda"]["lattice"] > 0 and stats["cuda"]["fallback"] > 0
+    zc, zp = outs["cuda"]["r"][:, 3], outs["cpu"]["r"][:, 3]
+    np.testing.assert_array_equal(np.where(zc < 0, zc, 1),
+                                  np.where(zp < 0, zp, 1))
+    ok = zc > 0
+    assert ok.mean() > 0.9
+    np.testing.assert_allclose(outs["cuda"]["p"][ok][:, [0, 4, 8]],
+                               outs["cpu"]["p"][ok][:, [0, 4, 8]], rtol=0,
+                               atol=1e-4)
