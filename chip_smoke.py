@@ -9,14 +9,20 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
 (any failure raises and the script exits non-zero without a result line):
 
 1. Identify the card (``nvidia-smi`` name and power limit) and build the
-   three CUDA kernels from ``opencorr_tpu_torch/csrc`` (one ``nvcc`` each,
+   four CUDA kernels from ``opencorr_tpu_torch/csrc`` (one ``nvcc`` each,
    all started together).
 2. Each kernel against its plain PyTorch version on the card at the main
    paths' shapes: the window gather bit-exact at 30k x 32x32, 33x33 and
    40x40 and 940 x 48x48 with corners that need clamping; the 2D lattice
    eval at D=2 (30k POIs) and D=6 (940 POIs) and the 3D lattice eval at
    D=1 (441 x 61^3) within 1e-6 x max|eblk|, and exactly 0 for
-   out-of-range offsets.  Kernel, plain and library times.
+   out-of-range offsets; the SIFT3D descriptor histogram at the octave-0
+   crops 23, 29 and 36, with random rotations, at 64 keypoints (some near
+   the volume's faces in clamped windows; the kernel splits each box into
+   z-bands) and at phase 7's kept count of that layer (4,689, 12,187 and
+   13,808; one block per keypoint), every keypoint within 1e-5 x max|S|
+   (float atomics sum in a varying order).  Kernel, plain and library
+   times; kernel 4's bound counts the voxels it must read.
 3. The main path on ``cuda``: FFTCC2D(16,16) -> ICGN2D1(16,16,0.001,10) ->
    Strain(20,5) on ``poi_grid_2d((30,30),100,300,2)`` (30,000 POIs) of a
    900x280 8-bit speckle pair whose target is the reference under a known
@@ -38,7 +44,21 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
 6. The DVC modules on ``cuda`` and on ``cpu`` on 64 POIs at r=16, every
    8th seed given a 0.2 z strain so that IC-GN takes its whole-chunk exact
    fallback: FFTCC u/v/w equal, codes equal, u/v/w within 1e-3 voxel.
-7. JSON lines: per-kernel records, the stage times, and last
+7. The feature-seeded DVC path on ``cuda`` at the Torus CT pair's
+   dimensions, 568x288x940 8-bit, built on the card (synthetic pores over a
+   weak speckle, grey levels 18-238; the target is the reference translated by u=0.5, v=-0.8,
+   w=1.2 through a Fourier phase shift): SIFT3D() -> FeatureAffine3D(16,
+   16, 16) -> ICGN3D1(16, 16, 16, 0.001, 10) -> ``save_table_3d`` on
+   ``poi_grid_3d((30,30,30),81,21,46,11)`` (78,246 POIs).  Counters zeroed
+   after a warm-up on a sub-volume and read just after.  Reports every
+   pyramid layer's candidate and survivor counts beside its caps; checks
+   the median matched displacement (within 1 voxel of the shift), the
+   converged fraction (>= 0.9) and mean |du|, |dv|, |dw| (< 0.01 voxel).
+8. SIFT3D, FeatureAffine3D and ICGN3D1 on ``cuda`` and on ``cpu`` on a
+   64x64x72 pair: keypoint counts and matched sets equal; FeatureAffine3D
+   on the same matches with the same RANSAC draws: codes equal, p within
+   1e-4; ICGN3D1 from the same seeds: codes equal, u/v/w within 1e-3 voxel.
+9. JSON lines: per-kernel records, the stage times, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -73,6 +93,30 @@ DVC_R = 30
 DVC_UVW = (0.4, -0.3, 0.6)
 DVC_STRAIN = 0.005
 DVC_CZ = (DVC_SHAPE[0] - 1) / 2.0
+# The feature-seeded DVC path (test_dvc_sift_icgn1): the Torus CT pair's
+# dimensions [z, y, x] (bench_dvc_torus.py:39,71), r=16, the translation
+# imposed on the target (examples/dvc.py:43), and a POI grid close to
+# Torus_POIs.csv's 78,700 points, every POI 24 voxels or more inside.
+TORUS_SHAPE = (568, 288, 940)
+TORUS_R = 16
+TORUS_UVW = (0.5, -0.8, 1.2)
+TORUS_GRID = ((30, 30, 30), 81, 21, 46, 11)
+# The synthetic pores: clusters of four Gaussian spikes (sigma 2.8 or 3.4
+# voxels, dark or bright, up to 30 grey levels a spike) one per 12.5^3
+# voxels on average, over a speckle of sigma 2 and 1.5 grey levels.  Phase 7
+# prints every pyramid layer's candidate count beside its cap: denser or
+# finer textures fill the scan-order caps, sparser ones leave POIs with
+# fewer than 4 matched keypoints in FeatureAffine3D's radius (code -1).
+PORES = dict(spacing=12.5, sigmas=(2.8, 3.4), amp=30.0, speckle_sigma=2.0,
+             speckle_std=1.5)
+# Keypoints the Torus-size path keeps on the reference volume's octave-0
+# layers (crops 23, 29, 36; phase 7 prints them): phase 2 launches kernel 4
+# at these counts too, where it runs one block per keypoint.
+TORUS_KEPT = (4689, 12187, 13808)
+# csrc/desc3d.cu's kTargetBlocks: below this many keypoints a launch splits
+# each keypoint's box into z-bands.
+DESC_TARGET_BLOCKS = 132 * 8
+DESC_PLAIN_CHUNK = 1024
 
 
 def log(*a):
@@ -87,9 +131,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` launches, CUDA events."""
-    for _ in range(2):
+def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` launches after ``warm``
+    untimed ones, CUDA events."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -271,6 +316,145 @@ def phase_lattice3d(torch, rng, reps, n=441, s=61, d=1):
         bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
     log(json.dumps({"kernel": "lattice_eval_3d", **rec}))
     return rec
+
+
+def random_rotations(rng, n):
+    rots = []
+    for _ in range(n):
+        a = rng.standard_normal(3)
+        a /= np.linalg.norm(a)
+        b = rng.standard_normal(3)
+        b -= (b @ a) * a
+        b /= np.linalg.norm(b)
+        rots.append(np.stack([a, b, np.cross(a, b)]).reshape(9))
+    return np.float32(rots)
+
+
+def desc3d_read_bytes(torch, vol_shape, starts, tab, crop, scale):
+    """Bytes of the layer volume that the descriptor histogram must read:
+    the six neighbours of every in-sphere voxel with a non-zero weight (the
+    voxels whose gradients it forms), each voxel once over all keypoints."""
+    from opencorr_tpu_torch.ops import desc3d
+
+    dev = tab.device
+    r2 = desc3d._radii(scale)[0]
+    cz, cy, cx = (2 * c + 1 for c in crop)
+    dz, dy, dx = vol_shape
+    seen = torch.zeros(dz * dy * dx, dtype=torch.bool, device=dev)
+    o = [torch.arange(n + 2, device=dev) for n in (cz, cy, cx)]
+    zs, ys, xs = slice(0, cz), slice(cz, cz + cy), slice(cz + cy, None)
+    for lo in range(0, starts.shape[0], 64):
+        t, s = tab[lo:lo + 64], starts[lo:lo + 64].long()
+        w, p2 = t[:, 0], t[:, 2]
+        # the kernel's sphere and weight tests, in its order of roundings
+        d2 = p2[:, zs, None, None] + (p2[:, None, ys, None]
+                                      + p2[:, None, None, xs])
+        wv = w[:, zs, None, None] * (w[:, None, ys, None]
+                                     * w[:, None, None, xs])
+        act = (d2 <= r2) & (wv != 0)
+        del d2, wv
+        read = torch.zeros((t.shape[0], cz + 2, cy + 2, cx + 2),
+                           dtype=torch.bool, device=dev)
+        mid = slice(1, -1)
+        for sl in ((slice(0, -2), mid, mid), (slice(2, None), mid, mid),
+                   (mid, slice(0, -2), mid), (mid, slice(2, None), mid),
+                   (mid, mid, slice(0, -2)), (mid, mid, slice(2, None))):
+            read[(slice(None),) + sl] |= act
+        zz, yy, xx = (s[:, i, None] + o[i] for i in range(3))
+        flat = ((zz[:, :, None, None] * dy + yy[:, None, :, None]) * dx
+                + xx[:, None, None, :])
+        seen[flat[read]] = True
+    return 4 * int(seen.sum())
+
+
+def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces):
+    """One descriptor-histogram launch of ``k`` keypoints at ``crop``
+    against its plain version on every keypoint, timed, with its bound.
+    ``near_faces``: a quarter of the keypoints sit within 3 voxels of a
+    face, off centre in their clamped windows; the rest sit in centred
+    windows, as on the main path.  The plain version runs in chunks of
+    ``DESC_PLAIN_CHUNK`` keypoints (its gradient windows take 4.7 MB a
+    keypoint at crop 36); each keypoint's rows of S depend only on its
+    own inputs."""
+    from opencorr_tpu_torch.ops import desc3d
+
+    dev = vol.device
+    shape = tuple(vol.shape)
+    units = (1.0, 1.0, 1.0)
+    coords = [rng.integers(c + 1, d - c - 1, k) for c, d in zip(crop, shape)]
+    for j in range(k // 4 if near_faces else 0):
+        a = rng.integers(0, 3)
+        coords[a][j] = rng.choice([rng.integers(0, 3),
+                                   shape[a] - 1 - rng.integers(0, 3)])
+    zi, yi, xi = (torch.from_numpy(c.astype(np.int32)).to(dev)
+                  for c in coords)
+    rot = torch.from_numpy(random_rotations(rng, k)).to(dev)
+    starts, tab = desc3d.prepare_tables(shape, xi, yi, zi, crop=crop,
+                                        scale=scale, unit_xyz=units)
+    kw = dict(crop=crop, scale=scale, unit_xyz=units)
+
+    def plain(counts=None):
+        return torch.cat([desc3d.descriptor_hist_plain(
+            vol, starts[lo:lo + DESC_PLAIN_CHUNK],
+            tab[lo:lo + DESC_PLAIN_CHUNK], rot[lo:lo + DESC_PLAIN_CHUNK],
+            counts=counts, **kw) for lo in range(0, k, DESC_PLAIN_CHUNK)])
+
+    got = desc3d.descriptor_hist(vol, starts, tab, rot, **kw)
+    counts = {}
+    want = plain(counts)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    check(err <= tol, f"descriptor_hist {k} keypoints, crop {crop}: "
+          f"max|err| {err} > {tol}")
+    del want
+    nbytes = desc3d_read_bytes(torch, shape, starts, tab, crop, scale) + 4 * (
+        tab.numel() + rot.numel() + starts.numel() + got.numel())
+    flops = (counts["sphere_voxels"] * desc3d.FLOPS_SPHERE_VOXEL
+             + counts["live_voxels"] * desc3d.FLOPS_LIVE_VOXEL)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOP_PER_S * 1e3
+    one_chunk = k <= DESC_PLAIN_CHUNK
+    # the kernel's split of a keypoint's box into z-bands (oc_desc3d_hist)
+    cz = 2 * crop[0] + 1
+    band = -(-cz // min(cz, -(-DESC_TARGET_BLOCKS // k)))
+    rec = dict(
+        shape=[k] + [2 * c + 1 for c in crop], scale=scale,
+        max_abs_err=err, tolerance=tol, z_bands=-(-cz // band),
+        ms=cuda_ms(torch, lambda: desc3d.descriptor_hist(
+            vol, starts, tab, rot, **kw), reps),
+        plain_ms=cuda_ms(torch, plain, 2 if one_chunk else 1,
+                         warm=2 if one_chunk else 0),
+        library_ms=None,
+        library_note="no single PyTorch call computes this histogram",
+        bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf
+        else "operations", bytes=nbytes, flops=flops,
+        sphere_voxels=counts["sphere_voxels"],
+        live_voxels=counts["live_voxels"])
+    log(json.dumps({"kernel": "descriptor_hist", **rec}))
+    return rec
+
+
+def phase_desc3d(torch, ot, rng, reps, k=64):
+    """The descriptor-histogram kernel against its plain version at the
+    three crops of the Torus path's octave-0 layers, with each layer's
+    scale: ``k`` keypoints, some near the faces (the kernel splits each
+    keypoint's box into z-bands to fill the card), then the main path's
+    keypoint count of that layer (one block per keypoint)."""
+    from opencorr_tpu_torch.ops import sift3d
+
+    layers = ot.SIFT3D(device="cuda")._plan_layers(TORUS_SHAPE)[1:4]
+    shape = (96, 100, 120)
+    vol = torch.from_numpy(np.float32(
+        128 + 40 * rng.standard_normal(shape))).cuda()
+    recs = []
+    for lay, k_path in zip(layers, TORUS_KEPT):
+        crop = sift3d._sphere_crop(64, lay.scale, (1.0, 1.0, 1.0))
+        recs.append(desc3d_case(torch, vol, crop, lay.scale, k, rng, reps,
+                                near_faces=True))
+        recs.append(desc3d_case(torch, vol, crop, lay.scale, k_path, rng,
+                                max(2, reps // 3), near_faces=False))
+    return recs
 
 
 def run_path(torch, ot, ref, tar, pois, device, csv_path=None):
@@ -580,6 +764,248 @@ def phase_dvc_cpu_agreement(torch, ot, ref, tar, r=16, n_pois=64):
     return res
 
 
+def sift_pair(torch, shape, seed, device, pad=16):
+    """An 8-bit volume pair [z, y, x] built with torch on ``device``: pores
+    (``PORES``) over a weak speckle, all band-limited, and the target the
+    reference translated by ``TORUS_UVW`` through a Fourier phase shift of
+    the padded base (exact for a band-limited periodic base; the padding
+    keeps the wrapped border out of the crop).  Grey levels are then
+    soft-clipped to 128 +- 110 by a tanh, pointwise, so the target stays the
+    exact translation of the clipped continuous field, and no voxel is
+    near 0 (IC-GN reads a sample below 0 as out of range, code -3)."""
+    import math
+
+    dev = torch.device(device)
+    full = [d + 2 * pad for d in shape]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kz = torch.fft.fftfreq(full[0], device=dev)[:, None, None]
+    ky = torch.fft.fftfreq(full[1], device=dev)[None, :, None]
+    kx = torch.fft.rfftfreq(full[2], device=dev)[None, None, :]
+    k2 = kz * kz + ky * ky + kx * kx
+    dims = torch.tensor(full, device=dev)
+    sig_all = PORES["sigmas"]
+    n_pore = int(np.prod(full) / PORES["spacing"] ** 3 / len(sig_all))
+    spec = None
+    for sig in sig_all:
+        spikes = torch.zeros(full, device=dev)
+        ctr = (torch.rand((n_pore, 3), generator=gen, device=dev)
+               * dims).long()
+        sign = torch.where(torch.rand(n_pore, generator=gen, device=dev)
+                           < 0.5, -1.0, 1.0)
+        # a spike of this weight peaks at PORES["amp"] once blurred
+        peak = PORES["amp"] * (2 * math.pi) ** 1.5 * sig ** 3
+        for j in range(4):
+            off = (torch.randint(-4, 5, (n_pore, 3), generator=gen,
+                                 device=dev) if j else 0)
+            amp = sign * peak * (0.3 + 0.7 * torch.rand(
+                n_pore, generator=gen, device=dev)) * (1.0 - 0.2 * j)
+            p = (ctr + off) % dims
+            spikes.index_put_((p[:, 0], p[:, 1], p[:, 2]), amp,
+                              accumulate=True)
+        part = torch.fft.rfftn(spikes) * torch.exp(
+            -2 * math.pi ** 2 * sig ** 2 * k2)
+        del spikes
+        spec = part if spec is None else spec + part
+    noise = torch.fft.rfftn(torch.randn(full, generator=gen, device=dev))
+    noise *= torch.exp(-2 * math.pi ** 2 * PORES["speckle_sigma"] ** 2 * k2)
+    std = float(torch.fft.irfftn(noise, s=full).std())
+    spec += noise * (PORES["speckle_std"] / std)
+    del noise
+    u, v, w = TORUS_UVW
+    shift = torch.exp(-2j * math.pi * (kz * w + ky * v + kx * u))
+    crop = tuple(slice(pad, pad + d) for d in shape)
+    out = []
+    for sp in (spec, spec * shift):
+        vol = torch.fft.irfftn(sp, s=full)[crop]
+        vol = 128.0 + 110.0 * torch.tanh(vol / 110.0)
+        out.append(torch.round(vol).contiguous())
+        del vol
+    return out
+
+
+def run_sift_slice(torch, ot, ref, tar, pois, device, r=TORUS_R,
+                   csv_path=None):
+    """SIFT3D -> FeatureAffine3D -> ICGN3D1 on ``pois``; per-stage ms."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    ms = {}
+    t0 = time.perf_counter()
+    sift = ot.SIFT3D(device=device)
+    sift.set_images(ref, tar)
+    sift.prepare()
+    sift.compute()
+    sync()
+    ms["sift3d"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fa = ot.FeatureAffine3D(r, r, r, device=device)
+    fa.set_keypoint_pair(sift.ref_matched_kp, sift.tar_matched_kp)
+    fa.prepare()
+    seeded = fa.compute(pois)
+    sync()
+    ms["feature_affine3d"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    icgn = ot.ICGN3D1(r, r, r, 0.001, 10, device=device)
+    icgn.set_images(ref, tar)
+    icgn.prepare()
+    sync()
+    ms["icgn3d1_prepare"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = icgn.compute(seeded)
+    sync()
+    ms["icgn3d1"] = (time.perf_counter() - t0) * 1e3
+    if csv_path is not None:
+        t0 = time.perf_counter()
+        ot.save_table_3d(csv_path, out)
+        ms["save_table_3d"] = (time.perf_counter() - t0) * 1e3
+    return sift, seeded, out, ms, dict(icgn.stats)
+
+
+def phase_sift(torch, ot, tmpdir):
+    from opencorr_tpu_torch.ops import desc3d, lattice3d
+
+    t0 = time.perf_counter()
+    ref, tar = sift_pair(torch, TORUS_SHAPE, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    synth_ms = (time.perf_counter() - t0) * 1e3
+    pois = ot.poi_grid_3d(*TORUS_GRID, device="cuda")
+    n = pois.n
+    check(n == TORUS_GRID[1] * TORUS_GRID[2] * TORUS_GRID[3],
+          f"Torus grid size {n}")
+    # warm-up on a sub-volume
+    sub = (slice(0, 160), slice(0, 128), slice(0, 192))
+    run_sift_slice(torch, ot, ref[sub].contiguous(), tar[sub].contiguous(),
+                   ot.poi_grid_3d((40, 40, 40), 4, 2, 3, 30, device="cuda"),
+                   "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    desc3d.descriptor_hist.launches = 0
+    lattice3d.lattice_eval_3d.launches = 0
+    csv = os.path.join(tmpdir, "torus.csv")
+    sift, seeded, out, ms, stats = run_sift_slice(torch, ot, ref, tar, pois,
+                                                  "cuda", csv_path=csv)
+    launches = {"descriptor_hist": desc3d.descriptor_hist.launches,
+                "lattice_eval_3d": lattice3d.lattice_eval_3d.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for name, v in launches.items():
+        check(v > 0, f"the SIFT path launched {name} no time")
+
+    layers = [dict(st) for st in sift.layer_stats]
+    cap_hits = [st for st in layers if st["candidates"] > st["k_e"]
+                or st["oriented"] > st["k_d"]]
+    mk1, mk2 = sift.ref_matched_kp, sift.tar_matched_kp
+    med = np.median(mk2 - mk1, axis=0) if len(mk1) else np.full(3, np.nan)
+    fa = ot.table_to_numpy(seeded)
+    t = ot.table_to_numpy(out)
+    zn = t["r"][:, 3]
+    conv = zn > 0.9
+    u, v, w = TORUS_UVW
+    du = np.abs(t["p"][conv, 0] - u)
+    dv = np.abs(t["p"][conv, 4] - v)
+    dw = np.abs(t["p"][conv, 8] - w)
+    with open(csv) as f:
+        n_lines = sum(1 for _ in f)
+    res = dict(
+        volume=list(TORUS_SHAPE), pois=n, r=TORUS_R, synth_ms=synth_ms,
+        ref_kp=sift.ref_kp_count, tar_kp=sift.tar_kp_count,
+        matches=int(len(mk1)), median_match_dxyz=[float(x) for x in med],
+        matches_within_1=float(np.mean(np.all(np.abs(
+            mk2 - mk1 - np.array(TORUS_UVW)) <= 1.0, axis=1))),
+        cap_hits=cap_hits,
+        fa3d_codes={str(c): int((fa["r"][:, 3] == c).sum())
+                    for c in (0.0, -1.0, -2.0)},
+        fa3d_mean_abs_duvw=[float(np.abs(fa["p"][fa["r"][:, 3] == 0, col]
+                                         - x).mean())
+                            for col, x in ((0, u), (4, v), (8, w))],
+        converged_frac=float(conv.mean()), mean_abs_du=float(du.mean()),
+        mean_abs_dv=float(dv.mean()), mean_abs_dw=float(dw.mean()),
+        max_abs_duvw=float(max(du.max(), dv.max(), dw.max())),
+        codes={str(c): int((zn == c).sum()) for c in (-1.0, -2.0, -3.0,
+                                                       -4.0, -5.0)},
+        mean_iterations=float(t["r"][conv, 4].mean()), icgn_stats=stats,
+        launches=launches, stage_ms=ms, peak_mem_mb=peak / 2**20,
+        csv_lines=n_lines)
+    for st in layers:
+        log(json.dumps({"sift_layer": st}))
+    log(json.dumps({"sift_path": res}))
+    check(all(abs(m - x) <= 1.0 for m, x in zip(med, TORUS_UVW)),
+          f"median matched displacement {med} vs {TORUS_UVW}")
+    check(np.isfinite(t["p"][conv]).all(), "non-finite results")
+    check(res["converged_frac"] >= 0.9,
+          f"SIFT path converged {res['converged_frac']}")
+    check(max(res["mean_abs_du"], res["mean_abs_dv"], res["mean_abs_dw"])
+          < 0.01, f"SIFT path displacement error {res['mean_abs_du']}, "
+          f"{res['mean_abs_dv']}, {res['mean_abs_dw']}")
+    check(n_lines == n + 1, f"Torus csv lines {n_lines}")
+    return res, launches
+
+
+def phase_sift_cpu_agreement(torch, ot, shape=(64, 64, 72), r=TORUS_R):
+    """SIFT3D, FeatureAffine3D and ICGN3D1 on cuda and on cpu on one small
+    pair.  FeatureAffine3D gets the cpu's matches on both devices and makes
+    the same draws from its seed on both; ICGN3D1 starts from the cpu's
+    FeatureAffine3D table on both."""
+    devices = card, host = ("cuda", "cpu")
+    ref, tar = sift_pair(torch, shape, seed=5, device="cpu")
+    vols = {host: (ref, tar), card: (ref.cuda(), tar.cuda())}
+    res = {}
+    sifts = {}
+    for dev in devices:
+        s = ot.SIFT3D(device=dev)
+        s.set_images(*vols[dev])
+        s.compute()
+        sifts[dev] = s
+    sets = {dev: set(map(tuple, np.concatenate(
+        [sifts[dev].ref_matched_kp, sifts[dev].tar_matched_kp], 1).tolist()))
+        for dev in devices}
+    res.update(
+        kp={dev: [sifts[dev].ref_kp_count, sifts[dev].tar_kp_count]
+            for dev in devices},
+        matches={dev: len(sets[dev]) for dev in devices},
+        matches_only_on={dev: len(sets[dev] - sets[o]) for dev, o in
+                         ((card, host), (host, card))},
+        fused_layers=sum(st["fused"] for st in sifts[card].layer_stats))
+    mk1, mk2 = sifts[host].ref_matched_kp, sifts[host].tar_matched_kp
+    grid = ((20, 20, 20), (shape[2] - 40) // 10 + 1,
+            (shape[1] - 40) // 10 + 1, (shape[0] - 40) // 10 + 1, 10)
+    seeded, outs = {}, {}
+    for dev in devices:
+        fa = ot.FeatureAffine3D(r, r, r, device=dev)
+        fa.set_keypoint_pair(mk1, mk2)
+        seeded[dev] = ot.table_to_numpy(fa.compute(ot.poi_grid_3d(
+            *grid, device=dev)))
+    s0 = seeded[host]
+    fa_codes_equal = np.array_equal(seeded[card]["r"][:, 3], s0["r"][:, 3])
+    fa_dp = float(np.abs(seeded[card]["p"] - s0["p"]).max())
+    for dev in devices:
+        t = ot.table_from_numpy_3d(s0["x"], s0["y"], s0["z"], s0["p"],
+                                   s0["r"], s0["e"], s0["sr"], device=dev)
+        m = ot.ICGN3D1(r, r, r, 0.001, 10, device=dev)
+        m.set_images(*vols[dev])
+        m.prepare()
+        outs[dev] = ot.table_to_numpy(m.compute(t))
+    zc, zp = outs[card]["r"][:, 3], outs[host]["r"][:, 3]
+    codes_equal = np.array_equal(np.where(zc < 0, zc, 1),
+                                 np.where(zp < 0, zp, 1))
+    both = (zc > 0) & (zp > 0)
+    duvw = np.abs(outs[card]["p"][both][:, [0, 4, 8]]
+                  - outs[host]["p"][both][:, [0, 4, 8]])
+    res.update(shape=list(shape), pois=int(len(zc)),
+               fa3d_codes_equal=fa_codes_equal, fa3d_max_abs_dp=fa_dp,
+               fa3d_ok=int((s0["r"][:, 3] == 0).sum()),
+               icgn_codes_equal=codes_equal, converged=int(both.sum()),
+               max_abs_duvw=float(duvw.max()) if both.any() else None)
+    log(json.dumps({"sift_cuda_vs_cpu": res}))
+    check(res["fused_layers"] > 0, "the small pair reached kernel 4 on no "
+          "layer")
+    check(res["kp"][card] == res["kp"][host], "keypoint counts differ")
+    check(sets[card] == sets[host], "matched sets differ")
+    check(fa_codes_equal and fa_dp <= 1e-4,
+          f"FeatureAffine3D differs: codes {fa_codes_equal}, dp {fa_dp}")
+    check(res["fa3d_ok"] > 0, "FeatureAffine3D fitted no POI")
+    check(codes_equal and both.any() and res["max_abs_duvw"] <= 1e-3,
+          f"ICGN3D1 differs: codes {codes_equal}, {res['max_abs_duvw']}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -601,7 +1027,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    names = ["gather2d", "lattice2d", "lattice3d"]
+    names = ["gather2d", "lattice2d", "lattice3d", "desc3d"]
     build_s = _kernels.build(names)
     for name in names:
         log(f"build {name}: {build_s[name]:.1f} s")
@@ -621,6 +1047,7 @@ def main() -> int:
     torch.cuda.synchronize()
     del warm
     records = phase_kernels(torch, img, rng, reps=20)
+    records["desc"] = phase_desc3d(torch, ot, rng, reps=10)
 
     # phase 3: the main path
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -639,17 +1066,31 @@ def main() -> int:
     vref, vtar = ot.Image3D.from_array(vref), ot.Image3D.from_array(vtar)
     with tempfile.TemporaryDirectory() as tmpdir:
         dvc_res, dvc_launches = phase_dvc(torch, ot, vref, vtar, tmpdir)
+    by_path = {"2d": dict(launches), "dvc": dict(dvc_launches)}
     launches.update(dvc_launches)
 
     # phase 6: the DVC modules on cuda against the cpu
     phase_dvc_cpu_agreement(torch, ot, vref, vtar)
+    del vref, vtar
 
-    # phase 7: the records
+    # phase 7: the feature-seeded DVC path at the Torus dimensions
+    with tempfile.TemporaryDirectory() as tmpdir:
+        sift_res, sift_launches = phase_sift(torch, ot, tmpdir)
+    torch.cuda.empty_cache()
+    by_path["sift"] = dict(sift_launches)
+    launches["descriptor_hist"] = sift_launches["descriptor_hist"]
+
+    # phase 8: the SIFT slice's modules on cuda against the cpu
+    phase_sift_cpu_agreement(torch, ot)
+
+    # phase 9: the records
     def summary(name, route, source, replaces, recs, ref_shape):
         r = next(x for x in recs if x["shape"] == ref_shape)
         return dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[name],
+            launches_by_path={p: v[name] for p, v in by_path.items()
+                              if name in v},
             max_abs_err=max(x["max_abs_err"] for x in recs),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -668,9 +1109,14 @@ def main() -> int:
                 "opencorr_tpu_torch/csrc/lattice3d.cu",
                 "opencorr_tpu/ops/pallas_lattice.py:74",
                 records["lattice3d"], [441, 61, 61, 61]),
+        summary("descriptor_hist", "cuda",
+                "opencorr_tpu_torch/csrc/desc3d.cu",
+                "opencorr_tpu/ops/pallas_desc.py:87", records["desc"],
+                [TORUS_KEPT[2], 73, 73, 73]),
     ]
     log(json.dumps({"stage_ms": main_res["stage_ms"],
                     "dvc_stage_ms": dvc_res["stage_ms"],
+                    "sift_stage_ms": sift_res["stage_ms"],
                     "total_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -6,8 +6,9 @@ tensors, with hand-written CUDA kernels (``csrc/``) where the JAX package
 had Pallas kernels.  Modules and top-level functions run on ``cuda`` unless
 the caller passes ``device="cpu"``; without a CUDA device they raise.
 
-Ported so far: the flagship 2D path FFTCC2D -> ICGN2D1 -> Strain, and the
-DVC path FFTCC3D -> ICGN3D1 -> Strain.
+Ported so far: the flagship 2D path FFTCC2D -> ICGN2D1 -> Strain, the
+DVC path FFTCC3D -> ICGN3D1 -> Strain, and the feature-seeded DVC path
+SIFT3D -> FeatureAffine3D -> ICGN3D1.
 """
 
 from .utils import precision as _precision  # noqa: F401  (pins full f32)
@@ -34,8 +35,10 @@ from .io.table import (
     save_table_2d,
     save_table_3d,
 )
+from .models.feature_affine import FeatureAffine3D, RansacConfig
 from .models.fftcc import FFTCC2D, FFTCC3D
 from .models.icgn import ICGN2D1, ICGN2D2, ICGN3D1
+from .models.sift3d import SIFT3D, Sift3dConfig
 from .models.strain import Strain
 from .utils.precision import resolve_device
 
@@ -65,6 +68,10 @@ __all__ = [
     "ICGN2D1",
     "ICGN2D2",
     "ICGN3D1",
+    "FeatureAffine3D",
+    "RansacConfig",
+    "SIFT3D",
+    "Sift3dConfig",
     "Strain",
     "resolve_device",
 ]

@@ -68,6 +68,17 @@ def _as_mat(img):
     return getattr(img, "mat", img)
 
 
+def upload(img, device: torch.device) -> torch.Tensor:
+    """An image, volume, array or tensor as a contiguous float32 tensor on
+    ``device``.  Integer host data crosses at its native width and is cast
+    on the device (uint8/16 -> f32 is exact)."""
+    m = _as_mat(img)
+    if isinstance(m, torch.Tensor):
+        return m.to(device=device, dtype=torch.float32).contiguous()
+    arr = np.ascontiguousarray(m)
+    return torch.from_numpy(arr).to(device).to(torch.float32)
+
+
 class Module2D:
     """Base for 2D modules: image state + subset radii (oc_dic.h:43-64)."""
 
@@ -80,13 +91,7 @@ class Module2D:
         self.tar_img: Optional[torch.Tensor] = None
 
     def _upload(self, img) -> torch.Tensor:
-        m = _as_mat(img)
-        if isinstance(m, torch.Tensor):
-            return m.to(device=self.device, dtype=torch.float32).contiguous()
-        # integer host data crosses at its native width and is cast on the
-        # device (uint8/16 -> f32 is exact)
-        arr = np.ascontiguousarray(m)
-        return torch.from_numpy(arr).to(self.device).to(torch.float32)
+        return upload(img, self.device)
 
     def set_images(self, ref_img, tar_img) -> None:
         self.ref_img = self._upload(ref_img)

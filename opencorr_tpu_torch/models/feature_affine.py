@@ -1,0 +1,214 @@
+"""FeatureAffine3D (reference API: ``FeatureAffine3D``,
+oc_feature_affine.h:82-118): a per-POI first-order deformation guess from
+matched keypoints, by RANSAC over the keypoints near each POI."""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data import poi as poi_mod
+from ..ops import feature_affine as fa_ops
+from ..utils.precision import DeviceLike, resolve_device
+from . import base
+
+
+def _merge_3d(t: poi_mod.POITable3D, out) -> poi_mod.POITable3D:
+    """Write RANSAC results into a table: p and the iteration and feature
+    counts where the fit succeeded, the code (0, -1 or -2) everywhere."""
+    p12, zncc, it, feat, ok = out
+    r = t.r.clone()
+    r[:, poi_mod.R3_ZNCC] = zncc
+    r[:, poi_mod.R3_ITER] = torch.where(ok, it, t.r[:, poi_mod.R3_ITER])
+    r[:, poi_mod.R3_FEAT] = torch.where(ok, feat, t.r[:, poi_mod.R3_FEAT])
+    return t.replace(p=torch.where(ok[:, None], p12, t.p), r=r)
+
+
+class _CandidateCache:
+    """Candidate tables memoised on the identity of the POI table's x
+    tensor and the search parameters, so that repeated ``compute`` calls on
+    one queue query the k-d tree once."""
+
+    def __init__(self, cap: int = 8):
+        self._entries = []  # [(weakref(x), params, data)]
+        self._cap = cap
+
+    def get(self, xobj, params, build):
+        for ref, p, data in self._entries:
+            if p == params and ref() is xobj:
+                return data
+        data = build()
+        self._entries.append((weakref.ref(xobj), params, data))
+        if len(self._entries) > self._cap:
+            self._entries.pop(0)
+        return data
+
+    def clear(self):
+        self._entries = []
+
+
+def _host_candidates(tree, q, kc, radius, neighbor_min, samples):
+    """The k-d tree candidate stage (the reference's nanoflann radius search
+    with KNN fallback, oc_feature_affine.cpp:182-222): per query point the
+    nearest keypoints in ascending distance; the candidates are the
+    in-radius ones when there are at least ``neighbor_min``, else the
+    nearest ``neighbor_min``.  Returns (idx [N, kc_eff] int32, cand_mask
+    [N, kc_eff] bool, enough [N] bool).
+
+    The query starts at k0 = max(16, neighbor_min, samples) neighbours and
+    doubles k only for rows whose k-th neighbour is still in radius, up to
+    ``kc``; the kept set is a prefix of each row, so columns past the
+    longest prefix (rounded up to 16) are dropped."""
+    k = min(kc, max(16, int(neighbor_min), int(samples)))
+    d, idx = tree.query(q, k=k, workers=-1)
+    if k == 1:
+        d, idx = d[:, None], idx[:, None]
+    while k < kc:
+        sat = d[:, -1] < radius  # a full row in radius: may have more
+        if not sat.any():
+            break
+        k2 = min(kc, 2 * k)
+        d2, i2 = tree.query(q[sat], k=k2, workers=-1)
+        d = np.pad(d, ((0, 0), (0, k2 - k)), constant_values=np.inf)
+        idx = np.pad(idx, ((0, 0), (0, k2 - k)))
+        d[sat], idx[sat] = d2, i2
+        k = k2
+    in_r = d < radius  # strict <, as d2 < r*r in the reference
+    nr = in_r.sum(1)
+    pos = np.arange(k)[None, :]
+    cand_mask = np.where((nr >= neighbor_min)[:, None], in_r,
+                         pos < neighbor_min)
+    enough = nr >= samples
+    keep = int(cand_mask.sum(1).max(initial=0))
+    kc_eff = min(k, max(16, -(-max(keep, samples) // 16) * 16))
+    return (idx[:, :kc_eff].astype(np.int32), cand_mask[:, :kc_eff], enough)
+
+
+@dataclasses.dataclass
+class RansacConfig:
+    """oc_feature_affine.h:26-31."""
+
+    trial_number: int
+    sample_number: int
+    error_threshold: float
+
+
+class FeatureAffine3D:
+    """Per-POI 12-parameter guess from matched keypoints
+    (oc_feature_affine.cpp:357-560).  Defaults per the reference's
+    constructor: search radius |(rx, ry, rz)|, at least 16 neighbours,
+    32 trials of 4 samples, 3.2 voxel error threshold.
+
+    The neighbour search is the host k-d tree (``neighbor_backend="host"``,
+    scipy's cKDTree, as the reference's nanoflann); the JAX package's
+    all-pairs ``"device"`` search is not ported.  The RANSAC draws come
+    from a ``torch.Generator`` seeded with ``seed`` on the CPU, so a queue
+    gets the same draws on every device.  ``chunk_size`` POIs run at
+    once."""
+
+    def __init__(self, radius_x: int, radius_y: int, radius_z: int,
+                 k_cap: int = 128, seed: int = 0,
+                 chunk_size: Optional[int] = 131072,
+                 neighbor_backend: str = "host", device: DeviceLike = None):
+        if neighbor_backend != "host":
+            raise NotImplementedError(
+                f"FeatureAffine3D: neighbor_backend={neighbor_backend!r} is "
+                "not ported; the port searches with a host k-d tree ('host')")
+        self.device = resolve_device(device)
+        self.neighbor_search_radius = float(
+            np.sqrt(radius_x ** 2 + radius_y ** 2 + radius_z ** 2))
+        self.neighbor_number_min = 16
+        self.ransac = RansacConfig(trial_number=32, sample_number=4,
+                                   error_threshold=3.2)
+        self.k_cap = int(k_cap)
+        self.seed = int(seed)
+        self.chunk_size = chunk_size
+        self.neighbor_backend = neighbor_backend
+        self.ref_kp: Optional[np.ndarray] = None
+        self.tar_kp: Optional[np.ndarray] = None
+        self._tree = None
+        self._cand = _CandidateCache()
+
+    def set_search(self, radius: float, neighbor_min: int):
+        self.neighbor_search_radius = float(radius)
+        self.neighbor_number_min = int(neighbor_min)
+
+    def set_ransac_config(self, cfg: RansacConfig):
+        self.ransac = cfg
+
+    def set_keypoint_pair(self, ref_kp, tar_kp):
+        self.ref_kp = np.asarray(ref_kp, np.float32).reshape(-1, 3)
+        self.tar_kp = np.asarray(tar_kp, np.float32).reshape(-1, 3)
+        self._tree = None
+        self._cand.clear()
+
+    def prepare(self, table=None, points=None):
+        """Build the keypoint k-d tree (the reference's prepare() builds its
+        nanoflann index, oc_feature_affine.cpp:112-116); with ``table``,
+        also its candidate tables (``points`` [N, 3] spares reading the
+        coordinates back)."""
+        if self.ref_kp is not None:
+            from scipy.spatial import cKDTree
+
+            self._tree = cKDTree(self.ref_kp)
+            if table is not None:
+                self._candidates(table, points)
+
+    def _candidates(self, table, points=None):
+        kc = min(self.k_cap, len(self.ref_kp))
+        sm = self.ransac.sample_number
+        params = (kc, self.neighbor_search_radius, self.neighbor_number_min,
+                  sm)
+
+        def build():
+            if points is not None:
+                q = np.asarray(points, np.float64).reshape(-1, 3)
+            else:
+                q = np.stack(table.coords_numpy(), -1).astype(np.float64)
+            idx, cand, enough = _host_candidates(
+                self._tree, q, kc, self.neighbor_search_radius,
+                self.neighbor_number_min, sm)
+            return tuple(torch.from_numpy(a).to(self.device)
+                         for a in (idx, cand, enough))
+
+        return self._cand.get(table.x, params, build)
+
+    def compute(self, table: poi_mod.POITable3D,
+                draws: Optional[torch.Tensor] = None) -> poi_mod.POITable3D:
+        """The guess for every POI of ``table``.  ``draws`` [4, N, trials]
+        integer RANSAC draws in [0, 2^30) replace the module's own
+        (``ops.feature_affine.ransac_draws(seed, N, trials)``)."""
+        if self.ref_kp is None:
+            raise RuntimeError("call set_keypoint_pair() first")
+        if not isinstance(table, poi_mod.POITable3D):
+            raise TypeError(f"FeatureAffine3D takes POITable3D, got "
+                            f"{type(table).__name__}")
+        if table.device != self.device:
+            raise ValueError(f"POI table on {table.device}, module on "
+                             f"{self.device}")
+        if self._tree is None:
+            self.prepare()
+        tr, sm = self.ransac.trial_number, self.ransac.sample_number
+        idx, cand, enough = self._candidates(table)
+        if draws is None:
+            draws = fa_ops.ransac_draws(self.seed, table.n, tr)
+        if tuple(draws.shape) != (4, table.n, tr):
+            raise ValueError(f"draws {tuple(draws.shape)}, expected "
+                             f"{(4, table.n, tr)}")
+        draws = draws.to(device=self.device, dtype=torch.int64)
+        ref_kp = torch.from_numpy(self.ref_kp).to(self.device)
+        tar_kp = torch.from_numpy(self.tar_kp).to(self.device)
+        nmin, thr = self.neighbor_number_min, self.ransac.error_threshold
+
+        def run(t, idx_c, cand_c, en_c, draws_c):
+            out = fa_ops.feature_affine_3d_idx(
+                ref_kp, tar_kp, t.x, t.y, t.z, idx_c, cand_c, en_c, nmin,
+                thr, draws_c.transpose(0, 1), trials=tr, samples=sm)
+            return _merge_3d(t, out)
+
+        return base.chunked(run, table, self.chunk_size, idx, cand, enough,
+                            draws.transpose(0, 1))

@@ -15,11 +15,15 @@ import torch
 
 
 def _eliminate(aug: torch.Tensor, k: int) -> torch.Tensor:
+    """Each update aug - factor * row rounds once to float32, as a fused
+    multiply-add: XLA compiles the JAX package's elimination so on the CPU.
+    The product of two float32 values is exact in float64, so only the
+    difference rounds."""
     for i in range(k):
         pivot = aug[..., i: i + 1, i: i + 1]
         row = aug[..., i: i + 1, :] / pivot
         factors = aug[..., :, i: i + 1]
-        aug = aug - factors * row
+        aug = (aug.double() - factors.double() * row.double()).to(aug.dtype)
         aug[..., i, :] = row[..., 0, :]
     return aug
 

@@ -11,12 +11,20 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+
+def f32(x) -> float:
+    """``x`` rounded to float32, as a Python float (exact in either type),
+    so that a constant computed in float64 enters float32 arithmetic as
+    the JAX package's float32 constant does."""
+    return float(np.float32(x))
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

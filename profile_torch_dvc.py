@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's DVC path on one GPU.
+"""Device-time breakdown of the port's DVC paths on one GPU.
 
 Run from the root of the repository:
 
-    python3 profile_torch_dvc.py
+    python3 profile_torch_dvc.py              # FFTCC3D -> ICGN3D1 -> Strain
+    python3 profile_torch_dvc.py --path sift  # SIFT3D -> FA3D -> ICGN3D1
 
-It builds the CUDA kernels, makes ``chip_smoke.py``'s 700x100x100 speckle
-volume pair, warms the path up on 512 POIs, then runs FFTCC3D(30) ->
-ICGN3D1(30, 0.001, 10) -> Strain(30, 10) on the 5,733 POIs of the
-al_foam4 grid under ``torch.profiler``.  It prints, per
+It builds the CUDA kernels and makes ``chip_smoke.py``'s volume pair.  The
+default path warms up on 512 POIs, then runs FFTCC3D(30) ->
+ICGN3D1(30, 0.001, 10) -> Strain(30, 10) on the 5,733 POIs of the al_foam4
+grid of the 700x100x100 speckle pair.  ``--path sift`` warms up on a
+sub-volume, then runs SIFT3D() -> FeatureAffine3D(16, 16, 16) ->
+ICGN3D1(16, 16, 16, 0.001, 10) on the 78,246 POIs of the 568x288x940
+Torus-size pair.  Either runs under ``torch.profiler`` and prints, per
 stage, the host wall time, the device time of the kernels launched in it
 (their sum over the wall time is the device's busy share) and the kernels
 that took the most of it, as JSON lines, the card's name and power limit
@@ -17,6 +21,7 @@ before the last line.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -24,7 +29,57 @@ import sys
 import time
 
 
+def _dvc_path(torch, cs, ot):
+    """FFTCC3D(30) -> ICGN3D1(30) -> Strain(30, 10) on the al_foam4 grid."""
+    ref, tar = (ot.Image3D.from_array(v) for v in cs.speckle_volumes(seed=2))
+    pois = ot.poi_grid_3d((35, 35, 60), 7, 7, 117, 5)
+    cs.run_dvc(torch, ot, ref, tar, pois.map(lambda a: a[:512]), "cuda")
+    r = cs.DVC_R
+    fftcc = ot.FFTCC3D(r, r, r)
+    fftcc.set_images(ref, tar)
+    icgn = ot.ICGN3D1(r, r, r, 0.001, 10)
+    icgn.set_images(ref, tar)
+    icgn.prepare()
+    strain = ot.Strain(r, 10)
+    run = (("fftcc3d", fftcc.compute), ("icgn3d1", icgn.compute),
+           ("strain", strain.compute))
+    return run, pois, lambda: {"icgn_stats": dict(icgn.stats),
+                               "fftcc_stats": dict(fftcc.stats)}
+
+
+def _sift_path(torch, cs, ot):
+    """SIFT3D -> FeatureAffine3D(16) -> ICGN3D1(16) on the Torus grid."""
+    ref, tar = cs.sift_pair(torch, cs.TORUS_SHAPE, seed=3, device="cuda")
+    pois = ot.poi_grid_3d(*cs.TORUS_GRID)
+    sub = (slice(0, 160), slice(0, 128), slice(0, 192))
+    cs.run_sift_slice(torch, ot, ref[sub].contiguous(), tar[sub].contiguous(),
+                      ot.poi_grid_3d((40, 40, 40), 4, 2, 3, 30), "cuda")
+    r = cs.TORUS_R
+    sift = ot.SIFT3D()
+    sift.set_images(ref, tar)
+    fa = ot.FeatureAffine3D(r, r, r)
+    icgn = ot.ICGN3D1(r, r, r, 0.001, 10)
+    icgn.set_images(ref, tar)
+    icgn.prepare()
+
+    def match(table):
+        sift.compute()
+        fa.set_keypoint_pair(sift.ref_matched_kp, sift.tar_matched_kp)
+        fa.prepare()
+        return table
+
+    run = (("sift3d", match), ("feature_affine3d", fa.compute),
+           ("icgn3d1", icgn.compute))
+    return run, pois, lambda: {"icgn_stats": dict(icgn.stats),
+                               "keypoints": [sift.ref_kp_count,
+                                             sift.tar_kp_count],
+                               "matches": len(sift.ref_matched_kp)}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--path", choices=("dvc", "sift"), default="dvc")
+    args = parser.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -37,25 +92,19 @@ def main() -> int:
     import opencorr_tpu_torch as ot
     from opencorr_tpu_torch.ops import _kernels
 
-    _kernels.build(["gather2d", "lattice2d", "lattice3d"])
-    ref, tar = (ot.Image3D.from_array(v) for v in cs.speckle_volumes(seed=2))
-    pois = ot.poi_grid_3d((35, 35, 60), 7, 7, 117, 5)
-    cs.run_dvc(torch, ot, ref, tar, pois.map(lambda a: a[:512]), "cuda")
-    r = cs.DVC_R
-    fftcc = ot.FFTCC3D(r, r, r)
-    fftcc.set_images(ref, tar)
-    icgn = ot.ICGN3D1(r, r, r, 0.001, 10)
-    icgn.set_images(ref, tar)
-    icgn.prepare()
-    strain = ot.Strain(r, 10)
+    if args.path == "sift":
+        _kernels.build(["lattice3d", "desc3d"])
+        run, pois, stats = _sift_path(torch, cs, ot)
+    else:
+        _kernels.build(["lattice3d"])
+        run, pois, stats = _dvc_path(torch, cs, ot)
     torch.cuda.synchronize()
 
     stages = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         table = pois
-        for name, fn in (("fftcc3d", fftcc.compute), ("icgn3d1", icgn.compute),
-                         ("strain", strain.compute)):
+        for name, fn in run:
             t0 = time.perf_counter()
             with record_function(f"stage:{name}"):
                 table = fn(table)
@@ -88,8 +137,7 @@ def main() -> int:
                  for k, v in top])
     for name, rec in out.items():
         print(json.dumps({"stage": name, "pois": pois.n, **rec}), flush=True)
-    print(json.dumps({"icgn_stats": dict(icgn.stats),
-                      "fftcc_stats": dict(fftcc.stats)}), flush=True)
+    print(json.dumps(stats()), flush=True)
     print(cs.card_line(), flush=True)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0

@@ -7,13 +7,15 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 
 Gather: bit-exact, corners clamped into the image.  Lattice (2D and 3D):
 within 1e-6 x max|eblk|, and exactly 0 where a placement offset is out of
-range.  The DVC modules: cuda against cpu on a small pair."""
+range.  The SIFT3D descriptor histogram: within 1e-5 x max|S| (float
+atomics sum in an order that varies from run to run).  The DVC modules and
+the SIFT3D slice: cuda against cpu on small pairs."""
 
 import numpy as np
 import pytest
 import torch
 
-from opencorr_tpu_torch.ops import gather2d, lattice2d, lattice3d
+from opencorr_tpu_torch.ops import desc3d, gather2d, lattice2d, lattice3d
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and torch's CPU thread pools stall when they oversubscribe the cores.
@@ -208,3 +210,92 @@ def test_dvc_modules_cuda_match_cpu(cuda):
     np.testing.assert_allclose(outs["cuda"]["p"][ok][:, [0, 4, 8]],
                                outs["cpu"]["p"][ok][:, [0, 4, 8]], rtol=0,
                                atol=1e-4)
+
+
+def _desc_inputs(k, crop, scale, seed, shape=(80, 84, 90)):
+    """A random volume, k keypoints (a quarter within 2 voxels of a face),
+    random rotations, and their window starts and tables."""
+    rng = np.random.default_rng(seed)
+    vol = torch.from_numpy(np.float32(128 + 40 * rng.standard_normal(shape)))
+    coords = [rng.integers(0, d, k) for d in shape]
+    for j in range(k // 4):
+        coords[j % 3][j] = rng.choice([0, 1, shape[j % 3] - 2])
+    zi, yi, xi = (torch.from_numpy(c.astype(np.int32)) for c in coords)
+    rots = []
+    for _ in range(k):
+        a = rng.standard_normal(3)
+        a /= np.linalg.norm(a)
+        b = rng.standard_normal(3)
+        b -= (b @ a) * a
+        b /= np.linalg.norm(b)
+        rots.append(np.stack([a, b, np.cross(a, b)]).reshape(9))
+    rot = torch.from_numpy(np.float32(rots))
+    starts, tab = desc3d.prepare_tables(shape, xi, yi, zi, crop=crop,
+                                        scale=scale, unit_xyz=(1.0, 1.0, 1.0))
+    return vol, starts, tab, rot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop_r,scale,k", [(23, 1.6, 40), (29, 2.0159, 9),
+                                            (36, 2.5398, 3), (8, 0.55, 300),
+                                            (23, 1.6, 1200)])
+def test_desc3d_kernel_vs_plain(cuda, crop_r, scale, k):
+    """The Torus path's three octave-0 crops and a small crop at fewer
+    keypoints than the 1,056 blocks the kernel aims for (each keypoint's
+    box split into z-bands that add into S), and crop 23 at 1,200
+    keypoints, as on the main path's layers (one block per keypoint, which
+    stores its S).  The plain version runs in chunks of 300 keypoints."""
+    crop = (crop_r,) * 3
+    args = [a.to(cuda) for a in _desc_inputs(k, crop, scale, seed=crop_r)]
+    kw = dict(crop=crop, scale=scale, unit_xyz=(1.0, 1.0, 1.0))
+    before = desc3d.descriptor_hist.launches
+    got = desc3d.descriptor_hist(*args, **kw)
+    torch.cuda.synchronize()
+    assert desc3d.descriptor_hist.launches == before + 1
+    want = torch.cat([desc3d.descriptor_hist_plain(
+        *(a[lo:lo + 300] if i else a for i, a in enumerate(args)), **kw)
+        for lo in range(0, k, 300)])
+    m = float(want.abs().max())
+    assert m > 0
+    assert float((got - want).abs().max()) <= 1e-5 * m
+
+
+@pytest.mark.cuda
+def test_desc3d_wrapper_refuses_bad_tensors(cuda):
+    crop = (6, 6, 6)
+    vol, starts, tab, rot = (a.to(cuda) for a in _desc_inputs(
+        4, crop, 0.4, seed=1, shape=(20, 22, 24)))
+    kw = dict(crop=crop, scale=0.4, unit_xyz=(1.0, 1.0, 1.0))
+    with pytest.raises(ValueError):
+        desc3d.descriptor_hist(vol, starts.long(), tab, rot, **kw)
+    with pytest.raises(ValueError):
+        desc3d.descriptor_hist(vol, starts, tab.cpu(), rot, **kw)
+    with pytest.raises(ValueError):
+        desc3d.descriptor_hist(vol.double(), starts, tab, rot, **kw)
+    with pytest.raises(ValueError):
+        desc3d.descriptor_hist(vol, starts, tab[:, :, ::2], rot, **kw)
+
+
+@pytest.mark.cuda
+def test_sift3d_slice_cuda_match_cpu(cuda):
+    """SIFT3D on cuda (kernel 4 on octave 0's first layer) and on the cpu
+    on one small pair: equal keypoint counts and matched sets."""
+    import opencorr_tpu_torch as ot
+    from scipy.ndimage import gaussian_filter, shift as ndshift
+
+    rng = np.random.default_rng(2)
+    base = (gaussian_filter(rng.standard_normal((72, 72, 72)), 1.5) * 50
+            + 128).astype(np.float32)
+    ref = base[10:62, 10:62, 10:62]
+    tar = ndshift(base, (2.0, -1.0, 1.5), order=3)[10:62, 10:62, 10:62]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = ot.SIFT3D(device=dev)
+        s.set_images(np.ascontiguousarray(ref), np.ascontiguousarray(tar))
+        before = desc3d.descriptor_hist.launches
+        s.compute()
+        out[dev] = (s.ref_kp_count, s.tar_kp_count,
+                    set(map(tuple, s.ref_matched_kp.tolist())),
+                    desc3d.descriptor_hist.launches - before)
+    assert out["cuda"][:3] == out["cpu"][:3]
+    assert out["cuda"][3] == 2 and out["cpu"][3] == 0
