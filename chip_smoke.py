@@ -14,15 +14,20 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
 2. Each kernel against its plain PyTorch version on the card at the main
    paths' shapes: the window gather bit-exact at 30k x 32x32, 33x33 and
    40x40 and 940 x 48x48 with corners that need clamping; the 2D lattice
-   eval at D=2 (30k POIs) and D=6 (940 POIs) and the 3D lattice eval at
-   D=1 (441 x 61^3) within 1e-6 x max|eblk|, and exactly 0 for
-   out-of-range offsets; the SIFT3D descriptor histogram at the octave-0
-   crops 23, 29 and 36, with random rotations, at 64 keypoints (some near
-   the volume's faces in clamped windows; the kernel splits each box into
-   z-bands) and at phase 7's kept count of that layer (4,689, 12,187 and
-   13,808; one block per keypoint), every keypoint within 1e-5 x max|S|
-   (float atomics sum in a varying order).  Kernel, plain and library
-   times; kernel 4's bound counts the voxels it must read.
+   eval at D=2 (30k POIs) and D=6 (940 POIs) within 1e-6 x max|eblk|; the
+   3D lattice eval at D=1 at one ICGN3D1 chunk of the DVC path (441 x
+   61^3) and of the SIFT path (2,795 x 33^3), on offsets from a smooth
+   affine warp per POI (as ICGN3D1 makes them) and on random ones, equal
+   with ``==``; both lattice evals exactly 0 for out-of-range offsets; the
+   SIFT3D descriptor histogram at the octave-0 crops 23, 29 and 36, with
+   random rotations, at 64 keypoints (some near the volume's faces in
+   clamped windows; the kernel splits each box into z-bands) and at phase
+   7's kept count of that layer (4,689, 12,187 and 13,808; one block per
+   keypoint) on white noise and on the same volume blurred at the layer's
+   sigma, and at the octave-1 layers' counts (5,942, 1,507 and 564 at
+   twice the voxel pitch) on the blurred volume, every keypoint within
+   1e-5 x max|S| (float atomics sum in a varying order).  Kernel, plain
+   and library times; kernel 4's bound counts the voxels it must read.
 3. The main path on ``cuda``: FFTCC2D(16,16) -> ICGN2D1(16,16,0.001,10) ->
    Strain(20,5) on ``poi_grid_2d((30,30),100,300,2)`` (30,000 POIs) of a
    900x280 8-bit speckle pair whose target is the reference under a known
@@ -40,7 +45,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    whose target is the reference under u=0.4, v=-0.3 and w=0.6 plus 0.5%
    strain along z, then ``save_table_3d`` and ``save_matrix_bin_3d``.
    Counters zeroed just before the timed run (after a 512-POI warm-up) and
-   read just after.  Checks convergence, the recovered field and ezz.
+   read just after; kernel 3's launches in that run are also timed with
+   CUDA events and summed.  Checks convergence, the recovered field and
+   ezz.
 6. The DVC modules on ``cuda`` and on ``cpu`` on 64 POIs at r=16, every
    8th seed given a 0.2 z strain so that IC-GN takes its whole-chunk exact
    fallback: FFTCC u/v/w equal, codes equal, u/v/w within 1e-3 voxel.
@@ -50,7 +57,8 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    w=1.2 through a Fourier phase shift): SIFT3D() -> FeatureAffine3D(16,
    16, 16) -> ICGN3D1(16, 16, 16, 0.001, 10) -> ``save_table_3d`` on
    ``poi_grid_3d((30,30,30),81,21,46,11)`` (78,246 POIs).  Counters zeroed
-   after a warm-up on a sub-volume and read just after.  Reports every
+   after a warm-up on a sub-volume and read just after, kernels 3 and 4
+   timed per launch with CUDA events in that run.  Reports every
    pyramid layer's candidate and survivor counts beside its caps; checks
    the median matched displacement (within 1 voxel of the shift), the
    converged fraction (>= 0.9) and mean |du|, |dv|, |dw| (< 0.01 voxel).
@@ -113,6 +121,8 @@ PORES = dict(spacing=12.5, sigmas=(2.8, 3.4), amp=30.0, speckle_sigma=2.0,
 # layers (crops 23, 29, 36; phase 7 prints them): phase 2 launches kernel 4
 # at these counts too, where it runs one block per keypoint.
 TORUS_KEPT = (4689, 12187, 13808)
+# ... and on its octave-1 layers (the same crops at twice the voxel pitch).
+TORUS_KEPT_OCT1 = (5942, 1507, 564)
 # csrc/desc3d.cu's kTargetBlocks: below this many keypoints a launch splits
 # each keypoint's box into z-bands.
 DESC_TARGET_BLOCKS = 132 * 8
@@ -175,6 +185,15 @@ def speckle_pair(seed: int):
 def true_uv(x, y, center):
     cx, cy = center
     return SHIFT_X + STRAIN * (x - cx), SHIFT_Y + STRAIN * (y - cy)
+
+
+def event_ms(wrapper):
+    """Launch count and summed CUDA-event milliseconds of ``wrapper``'s
+    launches since its ``events`` list was set; stops the recording."""
+    ev, wrapper.events = wrapper.events, None
+    ms = [a.elapsed_time(b) for a, b in ev]
+    return dict(launches=len(ms), ms_sum=sum(ms),
+                ms_per_launch=sum(ms) / len(ms) if ms else None)
 
 
 def check(cond, what):
@@ -264,39 +283,85 @@ def phase_kernels(torch, img, rng, reps):
             bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
         records["lattice"].append(rec)
         log(json.dumps({"kernel": "lattice_eval_2d", **rec}))
-    records["lattice3d"] = [phase_lattice3d(torch, rng, reps)]
+    records["lattice3d"] = []
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
+    for n, s in lattice3d_chunks(torch):
+        for kind in ("path", "random"):
+            records["lattice3d"].append(phase_lattice3d(
+                torch, gen, reps, n=n, s=s, kind=kind))
+            torch.cuda.empty_cache()
     return records
 
 
-def phase_lattice3d(torch, rng, reps, n=441, s=61, d=1):
-    """The 3D lattice kernel against its plain version at the shape of one
-    of the DVC path's ICGN3D1 chunks (441 POIs at r=30 on an 80 GB card),
-    with out-of-range offsets on every axis."""
-    from opencorr_tpu_torch.ops import lattice3d
+def lattice3d_chunks(torch):
+    """(POIs, side) of one ICGN3D1 chunk on the DVC path (r=30, 441 POIs on
+    an 80 GB card) and on the SIFT path (r=16, 2,795 POIs)."""
+    import opencorr_tpu_torch as ot
 
+    out = []
+    for r, n_queue in ((DVC_R, 5733), (TORUS_R, int(np.prod(TORUS_GRID[1:4])))):
+        icgn = ot.ICGN3D1(r, r, r, device="cuda")
+        out.append((icgn.auto_chunk(n_queue), 2 * r + 1))
+    return out
+
+
+def lattice3d_inputs(torch, n, s, d, kind, gen):
+    """eblk and the six sample arrays of ``n`` POIs at side ``s``, built on
+    the card from ``gen``.  "path": per POI a translation in [0, 1)^3 and a
+    displacement gradient of N(0, 0.003) per entry, the samples' local
+    coordinates split into floor offsets (D at rest) and fractions as
+    ICGN3D1 splits them, so neighbouring samples share offsets; "random":
+    uniform offsets in [0, 2D], 2% of them out of range (-7 on z, 40 on y,
+    2D+9 on x), and uniform fractions."""
     dev = torch.device("cuda")
     e = s + 3 + 2 * d
-    eblk = torch.from_numpy(np.round(rng.uniform(
-        0, 255, (n, e, e, e))).astype(np.float32)).to(dev)
-    offs = []
-    for far in (-7, 40, 2 * d + 9):  # z, y, x
-        a = rng.integers(0, 2 * d + 1, (n, s, s, s), dtype=np.int32)
-        bad = rng.uniform(size=a.shape) < 0.02
-        a[bad] = rng.choice([-1, 2 * d + 1, far], bad.sum())
-        offs.append(torch.from_numpy(a).to(dev))
-    fracs = [torch.from_numpy(rng.uniform(0, 1, (n, s, s, s)).astype(
-        np.float32)).to(dev) for _ in range(3)]
+    eblk = torch.round(torch.rand((n, e, e, e), generator=gen, device=dev)
+                       * 255)
+    offs, fracs = [], []
+    if kind == "path":
+        t = torch.rand((n, 3), generator=gen, device=dev)
+        grad = 0.003 * torch.randn((n, 3, 3), generator=gen, device=dev)
+        q = torch.arange(s, device=dev, dtype=torch.float32) - (s - 1) / 2
+        qs = (q[:, None, None], q[None, :, None], q[None, None, :])
+        for a in range(3):  # z, y, x
+            loc = d + t[:, a, None, None, None] + sum(
+                grad[:, a, b, None, None, None] * qs[b] for b in range(3))
+            fl = torch.floor(loc)
+            offs.append(fl.to(torch.int32).contiguous())
+            fracs.append((loc - fl).contiguous())
+            del loc, fl
+    else:
+        for far in (-7, 40, 2 * d + 9):
+            a = torch.randint(0, 2 * d + 1, (n, s, s, s), generator=gen,
+                              device=dev, dtype=torch.int32)
+            a[torch.rand(a.shape, generator=gen, device=dev) < 0.02] = far
+            offs.append(a)
+            fracs.append(torch.rand(a.shape, generator=gen, device=dev))
+    return eblk, offs, fracs
+
+
+def phase_lattice3d(torch, gen, reps, n, s, kind, d=1):
+    """The 3D lattice kernel against its plain version at one ICGN3D1
+    chunk's shape, on ``kind`` offsets (``lattice3d_inputs``): equal with
+    ``==``, and exactly 0 wherever an offset is out of range."""
+    from opencorr_tpu_torch.ops import lattice3d
+
+    eblk, offs, fracs = lattice3d_inputs(torch, n, s, d, kind, gen)
     args = (eblk, *offs, *fracs)
     got = lattice3d.lattice_eval_3d(*args, d_wobble=d)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     want = lattice3d.lattice_eval_3d_plain(*args, d_wobble=d)
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     oor = torch.zeros_like(offs[0], dtype=torch.bool)
     for a in offs:
         oor |= (a < 0) | (a > 2 * d)
     check(bool((got[oor] == 0).all()), "lattice3d: nonzero out of range")
     err = float((got - want).abs().max())
-    tol = 1e-6 * float(eblk.abs().max())
-    check(err <= tol, f"lattice3d: max|err| {err} > {tol}")
+    check(torch.equal(got, want), f"lattice3d {n}x{s}^3 ({kind}): not "
+          f"bit-equal to the plain version, max|err| {err}")
     del got, want
     in_range = int((~oor).sum())
     nbytes = (eblk.numel() + 7 * n * s ** 3) * 4
@@ -304,12 +369,11 @@ def phase_lattice3d(torch, rng, reps, n=441, s=61, d=1):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / F32_FLOP_PER_S * 1e3
     rec = dict(
-        shape=[n, s, s, s], d_wobble=d, max_abs_err=err, tolerance=tol,
+        shape=[n, s, s, s], d_wobble=d, offsets=kind, max_abs_err=err,
+        bit_equal=True,
         ms=cuda_ms(torch, lambda: lattice3d.lattice_eval_3d(
             *args, d_wobble=d), reps),
-        plain_ms=cuda_ms(torch, lambda: lattice3d.lattice_eval_3d_plain(
-            *args, d_wobble=d), max(2, reps // 4)),
-        library_ms=None,
+        plain_ms=plain_ms, library_ms=None,
         library_note="no single PyTorch call computes a tricubic B-spline "
                      "sum over per-POI blocks at per-sample offsets",
         bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
@@ -367,20 +431,20 @@ def desc3d_read_bytes(torch, vol_shape, starts, tab, crop, scale):
     return 4 * int(seen.sum())
 
 
-def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces):
+def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces,
+                units=(1.0, 1.0, 1.0), volume="noise"):
     """One descriptor-histogram launch of ``k`` keypoints at ``crop``
     against its plain version on every keypoint, timed, with its bound.
     ``near_faces``: a quarter of the keypoints sit within 3 voxels of a
     face, off centre in their clamped windows; the rest sit in centred
-    windows, as on the main path.  The plain version runs in chunks of
-    ``DESC_PLAIN_CHUNK`` keypoints (its gradient windows take 4.7 MB a
-    keypoint at crop 36); each keypoint's rows of S depend only on its
-    own inputs."""
+    windows, as on the main path.  The plain version runs once, timed, in
+    chunks of ``DESC_PLAIN_CHUNK`` keypoints (its gradient windows take
+    4.7 MB a keypoint at crop 36); each keypoint's rows of S depend only on
+    its own inputs."""
     from opencorr_tpu_torch.ops import desc3d
 
     dev = vol.device
     shape = tuple(vol.shape)
-    units = (1.0, 1.0, 1.0)
     coords = [rng.integers(c + 1, d - c - 1, k) for c, d in zip(crop, shape)]
     for j in range(k // 4 if near_faces else 0):
         a = rng.integers(0, 3)
@@ -401,8 +465,12 @@ def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces):
 
     got = desc3d.descriptor_hist(vol, starts, tab, rot, **kw)
     counts = {}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     want = plain(counts)
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     err = float((got - want).abs().max())
     tol = 1e-5 * float(want.abs().max())
     check(err <= tol, f"descriptor_hist {k} keypoints, crop {crop}: "
@@ -414,18 +482,16 @@ def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces):
              + counts["live_voxels"] * desc3d.FLOPS_LIVE_VOXEL)
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / F32_FLOP_PER_S * 1e3
-    one_chunk = k <= DESC_PLAIN_CHUNK
     # the kernel's split of a keypoint's box into z-bands (oc_desc3d_hist)
     cz = 2 * crop[0] + 1
     band = -(-cz // min(cz, -(-DESC_TARGET_BLOCKS // k)))
     rec = dict(
         shape=[k] + [2 * c + 1 for c in crop], scale=scale,
+        units=list(units), volume=volume,
         max_abs_err=err, tolerance=tol, z_bands=-(-cz // band),
         ms=cuda_ms(torch, lambda: desc3d.descriptor_hist(
             vol, starts, tab, rot, **kw), reps),
-        plain_ms=cuda_ms(torch, plain, 2 if one_chunk else 1,
-                         warm=2 if one_chunk else 0),
-        library_ms=None,
+        plain_ms=plain_ms, library_ms=None,
         library_note="no single PyTorch call computes this histogram",
         bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf
         else "operations", bytes=nbytes, flops=flops,
@@ -437,23 +503,42 @@ def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces):
 
 def phase_desc3d(torch, ot, rng, reps, k=64):
     """The descriptor-histogram kernel against its plain version at the
-    three crops of the Torus path's octave-0 layers, with each layer's
-    scale: ``k`` keypoints, some near the faces (the kernel splits each
-    keypoint's box into z-bands to fill the card), then the main path's
-    keypoint count of that layer (one block per keypoint)."""
+    crops of the Torus path's octave-0 and octave-1 layers, with each
+    layer's scale and voxel pitch, on a 96x100x120 volume of white noise
+    and the same volume Gaussian-blurred at the layer's sigma in voxels (as
+    the path's pyramid layers are: neighbouring voxels then share their
+    face and tent bins).  Octave 0: ``k`` keypoints on noise, some near the
+    faces (the kernel splits each keypoint's box into z-bands to fill the
+    card), then the main path's keypoint count of the layer (one block per
+    keypoint) on both volumes; octave 1: the path's count on the blurred
+    volume."""
+    from scipy.ndimage import gaussian_filter
+
     from opencorr_tpu_torch.ops import sift3d
 
-    layers = ot.SIFT3D(device="cuda")._plan_layers(TORUS_SHAPE)[1:4]
+    layers = ot.SIFT3D(device="cuda")._plan_layers(TORUS_SHAPE)
     shape = (96, 100, 120)
-    vol = torch.from_numpy(np.float32(
-        128 + 40 * rng.standard_normal(shape))).cuda()
+    noise = np.float32(128 + 40 * rng.standard_normal(shape))
+    vol = torch.from_numpy(noise).cuda()
     recs = []
-    for lay, k_path in zip(layers, TORUS_KEPT):
-        crop = sift3d._sphere_crop(64, lay.scale, (1.0, 1.0, 1.0))
-        recs.append(desc3d_case(torch, vol, crop, lay.scale, k, rng, reps,
-                                near_faces=True))
-        recs.append(desc3d_case(torch, vol, crop, lay.scale, k_path, rng,
-                                max(2, reps // 3), near_faces=False))
+    # octave 0 is layers 1-3 of the plan, octave 1 layers 7-9
+    for lay, k_path, octave in [(lay, kp, 0) for lay, kp in zip(
+            layers[1:4], TORUS_KEPT)] + [(lay, kp, 1) for lay, kp in zip(
+                layers[7:10], TORUS_KEPT_OCT1)]:
+        units = tuple(float(u) for u in lay.units)
+        crop = sift3d._sphere_crop(64, lay.scale, units)
+        blurred = torch.from_numpy(np.float32(gaussian_filter(
+            noise, lay.scale / units[0]))).cuda()
+        if octave == 0:
+            recs.append(desc3d_case(torch, vol, crop, lay.scale, k, rng,
+                                    reps, near_faces=True, units=units))
+            recs.append(desc3d_case(torch, vol, crop, lay.scale, k_path,
+                                    rng, max(2, reps // 3), near_faces=False,
+                                    units=units))
+        recs.append(desc3d_case(torch, blurred, crop, lay.scale, k_path, rng,
+                                max(2, reps // 3), near_faces=False,
+                                units=units, volume="blurred"))
+        del blurred
     return recs
 
 
@@ -670,9 +755,11 @@ def phase_dvc(torch, ot, ref, tar, tmpdir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lattice3d.lattice_eval_3d.launches = 0
+    lattice3d.lattice_eval_3d.events = []
     out, ms, stats, fstats = run_dvc(torch, ot, ref, tar, pois, "cuda",
                                      out_dir=tmpdir)
     launches = {"lattice_eval_3d": lattice3d.lattice_eval_3d.launches}
+    kernel_ms = {"lattice_eval_3d": event_ms(lattice3d.lattice_eval_3d)}
     peak = torch.cuda.max_memory_allocated()
     check(launches["lattice_eval_3d"] > 0,
           "the DVC path launched lattice_eval_3d no time")
@@ -701,7 +788,8 @@ def phase_dvc(torch, ot, ref, tar, tmpdir):
                                                        -5.0)},
         mean_iterations=float(t["r"][conv, 4].mean()),
         icgn_stats=stats, fftcc_stats=fstats, launches=launches,
-        stage_ms=ms, peak_mem_mb=peak / 2**20, csv_lines=n_lines,
+        kernel_event_ms=kernel_ms, stage_ms=ms, peak_mem_mb=peak / 2**20,
+        csv_lines=n_lines,
         matrix_bin_records=int(rec.shape[0]))
     log(json.dumps({"dvc_path": res}))
     check(np.isfinite(t["p"][conv]).all() and np.isfinite(t["e"][conv]).all(),
@@ -879,11 +967,15 @@ def phase_sift(torch, ot, tmpdir):
     torch.cuda.reset_peak_memory_stats()
     desc3d.descriptor_hist.launches = 0
     lattice3d.lattice_eval_3d.launches = 0
+    desc3d.descriptor_hist.events = []
+    lattice3d.lattice_eval_3d.events = []
     csv = os.path.join(tmpdir, "torus.csv")
     sift, seeded, out, ms, stats = run_sift_slice(torch, ot, ref, tar, pois,
                                                   "cuda", csv_path=csv)
     launches = {"descriptor_hist": desc3d.descriptor_hist.launches,
                 "lattice_eval_3d": lattice3d.lattice_eval_3d.launches}
+    kernel_ms = {"descriptor_hist": event_ms(desc3d.descriptor_hist),
+                 "lattice_eval_3d": event_ms(lattice3d.lattice_eval_3d)}
     peak = torch.cuda.max_memory_allocated()
     for name, v in launches.items():
         check(v > 0, f"the SIFT path launched {name} no time")
@@ -921,7 +1013,8 @@ def phase_sift(torch, ot, tmpdir):
         codes={str(c): int((zn == c).sum()) for c in (-1.0, -2.0, -3.0,
                                                        -4.0, -5.0)},
         mean_iterations=float(t["r"][conv, 4].mean()), icgn_stats=stats,
-        launches=launches, stage_ms=ms, peak_mem_mb=peak / 2**20,
+        launches=launches, kernel_event_ms=kernel_ms, stage_ms=ms,
+        peak_mem_mb=peak / 2**20,
         csv_lines=n_lines)
     for st in layers:
         log(json.dumps({"sift_layer": st}))
@@ -1047,6 +1140,7 @@ def main() -> int:
     torch.cuda.synchronize()
     del warm
     records = phase_kernels(torch, img, rng, reps=20)
+    lattice_shape = records["lattice3d"][0]["shape"]  # one DVC chunk
     records["desc"] = phase_desc3d(torch, ot, rng, reps=10)
 
     # phase 3: the main path
@@ -1084,13 +1178,18 @@ def main() -> int:
     phase_sift_cpu_agreement(torch, ot)
 
     # phase 9: the records
-    def summary(name, route, source, replaces, recs, ref_shape):
-        r = next(x for x in recs if x["shape"] == ref_shape)
+    path_ms = {"dvc": dvc_res["kernel_event_ms"],
+               "sift": sift_res["kernel_event_ms"]}
+    def summary(name, route, source, replaces, recs, ref_shape, **pick):
+        r = next(x for x in recs if x["shape"] == ref_shape
+                 and all(x.get(k) == v for k, v in pick.items()))
         return dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[name],
             launches_by_path={p: v[name] for p, v in by_path.items()
                               if name in v},
+            path_event_ms={p: v[name] for p, v in path_ms.items()
+                           if name in v},
             max_abs_err=max(x["max_abs_err"] for x in recs),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -1108,11 +1207,11 @@ def main() -> int:
         summary("lattice_eval_3d", "cuda",
                 "opencorr_tpu_torch/csrc/lattice3d.cu",
                 "opencorr_tpu/ops/pallas_lattice.py:74",
-                records["lattice3d"], [441, 61, 61, 61]),
+                records["lattice3d"], list(lattice_shape), offsets="path"),
         summary("descriptor_hist", "cuda",
                 "opencorr_tpu_torch/csrc/desc3d.cu",
                 "opencorr_tpu/ops/pallas_desc.py:87", records["desc"],
-                [TORUS_KEPT[2], 73, 73, 73]),
+                [TORUS_KEPT[2], 73, 73, 73], volume="blurred", units=[1.0] * 3),
     ]
     log(json.dumps({"stage_ms": main_res["stage_ms"],
                     "dvc_stage_ms": dvc_res["stage_ms"],

@@ -21,29 +21,69 @@
 // only in the order of the sums.
 //
 // Bound on the H100: operations.  A keypoint reads only the in-sphere
-// voxels of its box and their one-voxel shell (under half of its (2c+3)^3
-// window; less where the windows of keypoints overlap) and writes 15 KB,
-// but every in-sphere voxel costs about 60 float operations and every live
-// one (in the cube, |g|^2 >= EPS10) about 190 more, 24 of them
-// shared-memory atomic adds: about 40 operations for each byte it must
-// read, twice the card's 20 (67 TFLOP/s over 3.35 TB/s).
+// voxels of its box and their one-voxel shell and writes 15 KB, but every
+// in-sphere voxel costs about 60 float operations and every live one (in
+// the cube, |g|^2 >= EPS10) about 190 more: about 40 operations for each
+// byte it must read, twice the card's 20 (67 TFLOP/s over 3.35 TB/s).  The
+// 67 TFLOP/s count a fused multiply-add as two operations; every product
+// here feeds a decision or must round as the plain version rounds it, so
+// none may fuse, and the float ceiling is half that rate before the
+// integer and shared-memory instructions: about 4x the bound is the
+// practical floor.
+//
+// No tensor cores: a voxel touches 24 of the 3,840 entries of S, so the
+// TPU kernel's dense one-hot [60, V] x [V, 64] product would be 160 times
+// the work, and TF32 cannot hold 1e-5 x max|S|.
+//
+// What the time goes to: the 24 adds of a live voxel.  A float atomicAdd
+// on shared memory has no instruction of its own on sm_90; it compiles to
+// a compare-and-swap loop (ATOMS.CAST.SPIN), and same-address adds from one
+// warp retry.  Without the adds the kernel takes about a third of its time
+// (bench_torch_kernels.py, variant noadds).
 //
 // Design: one block per keypoint, or per (keypoint, z-band) when a layer
-// has too few keypoints to fill the card, all keypoints of a layer in one
-// launch.  S lives in shared memory (60 rows at a 65-float pitch, so that
-// the rows of one column fall in different banks), beside the keypoint's
-// per-axis tables and rotation.  Threads walk the box in x-fastest order,
-// so neighbouring threads read neighbouring voxels of the layer (served
-// from L1/L2 for the six gradient taps); voxels outside the sphere leave
-// after the table reads.  A voxel touches 3 rows x 8 columns of S: 24
-// shared-memory atomic adds, not the TPU kernel's dense one-hot [60, V] x
-// [V, 64] contraction.  The block adds its S to the output once (a store
-// when there is one band).  Float atomics make the summation order vary
-// from run to run.
+// has too few keypoints to fill the card or a box too many rows, all
+// keypoints of a layer in one launch.  S lives in shared memory (60 rows at
+// a 65-float pitch), beside the keypoint's per-axis tables and rotation.
+// - Only in-sphere voxels are visited.  For each (z, y) row of the box the
+//   in-sphere voxels form one x-interval (px^2 falls, then rises, along x,
+//   and float addition is monotone), found by two binary searches with the
+//   kernel's own sphere expression, so the voxel set is exactly the plain
+//   version's, windows clamped at a face included.  A row keeps its first x
+//   and its length in 2 bytes; the in-sphere voxels are numbered row after
+//   row, and each thread walks the rows forward with a running start, from
+//   round to round of kThreads voxels.
+// - Within a round, thread t takes voxel bitrev8(t), so the lanes of a warp
+//   hold voxels 8 apart: on a blurred layer neighbouring voxels share their
+//   face and tent bins (their adds would hit the same 24 words), voxels 8
+//   apart much less often.  Their gradient taps still fall on a few cache
+//   lines, which the warps of the round share.
+// - 32 registers and at most 29 KB of shared memory (crop 36) let 7 or 8
+//   blocks (56 or 64 warps) share an SM, to keep the swaps' latencies
+//   covered.
+// The block adds its S to the output once (a store when there is one
+// band).  Float atomics make the summation order vary from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+// Build switches for measurement (bench_torch_kernels.py builds the
+// variants; the package builds the defaults).  DESC3D_SPREAD 0 gives the
+// lanes of a warp consecutive voxels; DESC3D_MIN_BLOCKS sets the blocks an
+// SM the registers must allow.  DESC3D_ABLATE 1 sums each thread's values
+// in a register instead of adding them to S, 2 makes the gradients from
+// the voxel index instead of the volume: both give wrong histograms and
+// only time what is left.
+#ifndef DESC3D_SPREAD
+#define DESC3D_SPREAD 1
+#endif
+#ifndef DESC3D_MIN_BLOCKS
+#define DESC3D_MIN_BLOCKS 8
+#endif
+#ifndef DESC3D_ABLATE
+#define DESC3D_ABLATE 0
+#endif
 
 namespace {
 
@@ -53,6 +93,8 @@ constexpr int kCols = 64;
 constexpr int kPitch = 65;
 // blocks to aim for when a layer has few keypoints: 8 per SM of an H100
 constexpr int kTargetBlocks = 132 * 8;
+// (z, y) rows of the row table a block may hold: 16 KB of shared memory
+constexpr int kMaxRows = 8192;
 constexpr float kEps10 = 1.1920928955078125e-06f;  // 10 * FLT_EPSILON
 
 struct Params {
@@ -72,7 +114,7 @@ __device__ __forceinline__ float sub_cube(float r, float cr, float inv_cr) {
                    0.5f);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, DESC3D_MIN_BLOCKS)
 desc3d_kernel(const float* __restrict__ vol,
               const int32_t* __restrict__ starts,
               const float* __restrict__ tab, const float* __restrict__ rot,
@@ -82,13 +124,17 @@ desc3d_kernel(const float* __restrict__ vol,
   const int L = p.cz + p.cy + p.cx;
   float* T = S + kRows * kPitch;  // rows w, p, p^2; columns z, y, x
   float* R = T + 3 * L;
+  int* misc = reinterpret_cast<int*>(R + 9);  // argmin x, voxel count
+  uint16_t* rowtab = reinterpret_cast<uint16_t*>(misc + 2);  // lo | len<<8
   const int kp = blockIdx.x / p.nband;
   const int band = blockIdx.x - kp * p.nband;
+  const int lane = threadIdx.x & 31;
 
   for (int i = threadIdx.x; i < kRows * kPitch; i += blockDim.x) S[i] = 0.0f;
   const float* tk = tab + (size_t)kp * 3 * L;
   for (int i = threadIdx.x; i < 3 * L; i += blockDim.x) T[i] = tk[i];
   if (threadIdx.x < 9) R[threadIdx.x] = rot[(size_t)kp * 9 + threadIdx.x];
+  if (threadIdx.x == 0) misc[1] = 0;
   __syncthreads();
 
   const float* wz = T;
@@ -100,26 +146,109 @@ desc3d_kernel(const float* __restrict__ vol,
   const float* pz2 = T + 2 * L;
   const float* py2 = pz2 + p.cz;
   const float* px2 = py2 + p.cy;
+
+  // the x index of the smallest px^2 (first of equals)
+  if (threadIdx.x < 32) {
+    float best = __int_as_float(0x7f800000);
+    int bi = p.cx;
+    for (int ix = lane; ix < p.cx; ix += 32) {
+      if (px2[ix] < best) {
+        best = px2[ix];
+        bi = ix;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_down_sync(0xffffffffu, best, o);
+      const int oi = __shfl_down_sync(0xffffffffu, bi, o);
+      if (ob < best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
+    }
+    if (lane == 0) misc[0] = bi;
+  }
+  __syncthreads();
+  const int xm = misc[0];
+
+  // each (z, y) row's in-sphere x-interval, and their total
+  const int zlo = band * p.band;
+  const int zhi = min(p.cz, zlo + p.band);
+  const int nrows = (zhi - zlo) * p.cy;
+  int count = 0;
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    const int iz = zlo + r / p.cy;
+    const float a = pz2[iz];
+    const float b = py2[r - (iz - zlo) * p.cy];
+    auto inside = [&](int ix) {
+      return __fadd_rn(a, __fadd_rn(b, px2[ix])) <= p.r2;
+    };
+    int lo = 0, len = 0;
+    if (inside(xm)) {
+      int hi = xm;  // the first inside in [0, xm]
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (inside(mid)) {
+          hi = mid;
+        } else {
+          lo = mid + 1;
+        }
+      }
+      int l2 = xm, h2 = p.cx - 1;  // the last inside in [xm, cx-1]
+      while (l2 < h2) {
+        const int mid = (l2 + h2 + 1) >> 1;
+        if (inside(mid)) {
+          l2 = mid;
+        } else {
+          h2 = mid - 1;
+        }
+      }
+      len = l2 - lo + 1;
+    }
+    rowtab[r] = (uint16_t)(lo | (len << 8));
+    count += len;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    count += __shfl_down_sync(0xffffffffu, count, o);
+  }
+  if (lane == 0) atomicAdd(&misc[1], count);
+  __syncthreads();
+  const int total = misc[1];
+
   const int z0 = starts[kp * 3 + 0] + 1;
   const int y0 = starts[kp * 3 + 1] + 1;
   const int x0 = starts[kp * 3 + 2] + 1;
   const size_t sy = (size_t)p.dx;
   const size_t sz = (size_t)p.dy * p.dx;
-  const int zlo = band * p.band;
-  const int zhi = min(p.cz, zlo + p.band);
-  const int plane = p.cy * p.cx;
-  const int nvox = (zhi - zlo) * plane;
+  // this thread's voxel of each round (see the design note)
+  const int slot = DESC3D_SPREAD ? (int)(__brev(threadIdx.x) >> 24)
+                                 : (int)threadIdx.x;
+  // the row of the thread's voxel, where that row's voxels start, and the
+  // row's (z, y)
+  int r = 0, rstart = 0, iz = zlo, iy = 0;
+#if DESC3D_ABLATE == 1
+  float sink = 0.0f;
+#endif
 
-  for (int v = threadIdx.x; v < nvox; v += blockDim.x) {
-    const int dzv = v / plane;
-    const int rem = v - dzv * plane;
-    const int iz = zlo + dzv;
-    const int iy = rem / p.cx;
-    const int ix = rem - iy * p.cx;
-    const float d2 = __fadd_rn(pz2[iz], __fadd_rn(py2[iy], px2[ix]));
-    if (!(d2 <= p.r2)) continue;
+  for (int v = slot; v < total; v += kThreads) {
+    int e = rowtab[r];
+    while (rstart + (e >> 8) <= v) {
+      rstart += e >> 8;
+      e = rowtab[++r];
+      if (++iy == p.cy) {
+        iy = 0;
+        ++iz;
+      }
+    }
+    const int ix = (e & 255) + (v - rstart);
     const float w = __fmul_rn(wz[iz], __fmul_rn(wy[iy], wx[ix]));
     if (w == 0.0f) continue;  // volume border: the gradient is zeroed
+#if DESC3D_ABLATE == 2
+    const float gx = __fmul_rn((float)((ix * 7 ^ iy * 5 ^ iz) & 31), w);
+    const float gy = __fmul_rn((float)((ix * 3 ^ iz * 9 ^ iy) & 31), w);
+    const float gz = __fmul_rn((float)((iy * 11 ^ iz * 3 ^ ix) & 31), w);
+#else
     const float* c = vol + (size_t)(z0 + iz) * sz + (size_t)(y0 + iy) * sy +
                      (size_t)(x0 + ix);
     const float gx =
@@ -128,6 +257,7 @@ desc3d_kernel(const float* __restrict__ vol,
         __fmul_rn(__fmul_rn(__fsub_rn(__ldg(c + sy), __ldg(c - sy)), p.hy), w);
     const float gz =
         __fmul_rn(__fmul_rn(__fsub_rn(__ldg(c + sz), __ldg(c - sz)), p.hz), w);
+#endif
     const float gg[3] = {dot3(R + 0, gx, gy, gz), dot3(R + 3, gx, gy, gz),
                          dot3(R + 6, gx, gy, gz)};
     const float sx = sub_cube(dot3(R + 0, px[ix], py[iy], pz[iz]), p.cr,
@@ -186,12 +316,20 @@ desc3d_kernel(const float* __restrict__ vol,
           const int col = (bin[0][bz] * 4 + bin[1][by]) * 4 + bin[2][bx];
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
-            atomicAdd(&S[(a * 20 + face) * kPitch + col], __fmul_rn(ag[a], cw));
+#if DESC3D_ABLATE == 1
+            sink = __fadd_rn(sink, __fmul_rn(ag[a], cw));
+#else
+            atomicAdd(&S[(a * 20 + face) * kPitch + col],
+                      __fmul_rn(ag[a], cw));
+#endif
           }
         }
       }
     }
   }
+#if DESC3D_ABLATE == 1
+  atomicAdd(&S[threadIdx.x], sink);
+#endif
   __syncthreads();
 
   float* o = out + (size_t)kp * kRows * kCols;
@@ -214,8 +352,9 @@ extern "C" int oc_desc3d_hist(const float* vol, const int32_t* starts,
                               int dx, float r2, float cr, float inv_cr,
                               float hx, float hy, float hz, float dhat,
                               const float* normals, void* stream) {
-  if (k < 0 || cz < 1 || cy < 1 || cx < 1 || dz < cz + 2 || dy < cy + 2 ||
-      dx < cx + 2) {
+  // a row's first x and length fit 8 bits each
+  if (k < 0 || cz < 1 || cy < 1 || cx < 1 || cx > 255 || cy > kMaxRows ||
+      dz < cz + 2 || dy < cy + 2 || dx < cx + 2) {
     return (int)cudaErrorInvalidValue;
   }
   if (k == 0) return (int)cudaGetLastError();
@@ -235,14 +374,18 @@ extern "C" int oc_desc3d_hist(const float* vol, const int32_t* starts,
   p.dy = dy;
   p.dx = dx;
   int nband = (kTargetBlocks + k - 1) / k;
+  const int min_band = (cz * cy + kMaxRows - 1) / kMaxRows;
+  if (nband < min_band) nband = min_band;
   if (nband > cz) nband = cz;
   if (nband < 1) nband = 1;
   p.band = (cz + nband - 1) / nband;
+  if (p.band * cy > kMaxRows) p.band = kMaxRows / cy;
   p.nband = (cz + p.band - 1) / p.band;
   const long long blocks = (long long)k * p.nband;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      (size_t)(kRows * kPitch + 3 * (cz + cy + cx) + 9) * sizeof(float);
+      (size_t)(kRows * kPitch + 3 * (cz + cy + cx) + 9) * sizeof(float) +
+      2 * sizeof(int) + (size_t)(p.band * cy + 1) * sizeof(uint16_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         desc3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

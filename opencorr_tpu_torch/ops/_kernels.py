@@ -99,3 +99,23 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def launch(wrapper, call) -> None:
+    """Run ``call``, one kernel launch through ctypes that returns a
+    cudaError_t code, raise on an error, and count it on ``wrapper``
+    (``wrapper.launches``).  While ``wrapper.events`` is a list, the launch
+    is bracketed by two CUDA events appended to it as a pair, so a caller
+    can sum the kernel's device time over a run."""
+    import torch
+
+    events = wrapper.events
+    if events is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    check(call(), wrapper.__name__)
+    if events is not None:
+        end.record()
+        events.append((start, end))
+    wrapper.launches += 1

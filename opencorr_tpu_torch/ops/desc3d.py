@@ -16,8 +16,10 @@ that a voxel costs a handful of products:
 * **Separable weights.**  The Gaussian weight and the volume border mask are
   per-axis tables; the sphere test runs on squared offsets.
 
-The CUDA kernel is ``csrc/desc3d.cu``: :func:`descriptor_hist` launches it
-for CUDA tensors and takes :func:`descriptor_hist_plain` for CPU tensors.
+The CUDA kernel is ``csrc/desc3d.cu`` (it visits only the in-sphere
+voxels, row by row, with a warp's lanes 8 voxels apart):
+:func:`descriptor_hist` launches it for CUDA tensors and takes
+:func:`descriptor_hist_plain` for CPU tensors.
 Both read the layer volume directly through the keypoints' window starts
 and per-axis tables (:func:`prepare_tables`).  The plain version keeps the
 JAX package's two levels: it forms the gradient windows and tables
@@ -42,11 +44,12 @@ from .sift3d import (EPS10, ICOSA_TRIPLETS, ICOSA_VERTICES, IMG_BORDER,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# Work per keypoint-voxel, counted from csrc/desc3d.cu: every voxel of the
-# sphere pays the weight, sphere test, gradients, rotations, sub-cube
-# coordinates and |g|^2; a voxel that is in the cube with |g|^2 >= EPS10
-# also pays the square root, 20 face dots and their maxima, alpha, the
-# tents, 8 corner weights and 24 products and sums.
+# The function's float work per keypoint-voxel (whatever loop computes
+# it): every voxel of the sphere pays the weight, sphere test, gradients,
+# rotations, sub-cube coordinates and |g|^2; a voxel that is in the cube
+# with |g|^2 >= EPS10 also pays the square root, 20 face dots and their
+# maxima, alpha, the tents, 8 corner weights and 24 products and sums.
+# Kernel 4's operation bound counts these.
 FLOPS_SPHERE_VOXEL = 2 + 2 + 6 + 3 + 15 + 15 + 12 + 5
 FLOPS_LIVE_VOXEL = 1 + 20 * 5 + 19 + 3 + 6 + 12 + 3 + 24 * 2
 
@@ -242,12 +245,27 @@ def descriptor_hist_plain(vol, starts, tab, rot, *, crop, scale, unit_xyz,
                             counts=counts)
 
 
-def _lib():
-    lib = _kernels.load("desc3d")
+def bind(lib: ctypes.CDLL):
+    """The kernel's C entry point in a loaded library, typed."""
     fn = lib.oc_desc3d_hist
     fn.argtypes = [_P] * 5 + [_I] * 7 + [_F] * 7 + [_P, _P]
     fn.restype = _I
     return fn
+
+
+def c_args(vol, starts, tab, rot, out, *, crop, scale, unit_xyz):
+    """The C entry point's arguments for checked tensors, on the current
+    stream (the normals' ctypes array lives in the tuple)."""
+    nf, dhat, _ = _face_tables()
+    normals = (ctypes.c_float * 60)(*nf.reshape(-1).tolist())
+    r2, cr, inv_cr, _ = _radii(scale)
+    ux, uy, uz = unit_xyz
+    cz, cy, cx = (2 * c + 1 for c in crop)
+    return (vol.data_ptr(), starts.data_ptr(), tab.data_ptr(), rot.data_ptr(),
+            out.data_ptr(), starts.shape[0], cz, cy, cx, *vol.shape, r2, cr,
+            inv_cr, f32(0.5 / ux), f32(0.5 / uy), f32(0.5 / uz), float(dhat),
+            ctypes.cast(normals, _P), torch.cuda.current_stream().cuda_stream,
+            normals)
 
 
 def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz):
@@ -285,24 +303,16 @@ def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz):
                              f"{vol.device}, got {t.dtype} on {t.device}")
     out = torch.zeros((k, 60, 64), dtype=torch.float32, device=vol.device)
     if k:
-        nf, dhat, _ = _face_tables()
-        normals = (ctypes.c_float * 60)(*nf.reshape(-1).tolist())
-        r2, cr, inv_cr, _ = _radii(scale)
-        ux, uy, uz = unit_xyz
-        dz, dy, dx = vol.shape
         with torch.cuda.device(vol.device):
-            rc = _lib()(
-                vol.data_ptr(), starts.data_ptr(), tab.data_ptr(),
-                rot.data_ptr(), out.data_ptr(), k, cz, cy, cx, dz, dy, dx,
-                r2, cr, inv_cr, f32(0.5 / ux), f32(0.5 / uy), f32(0.5 / uz),
-                float(dhat), ctypes.cast(normals, _P),
-                torch.cuda.current_stream().cuda_stream)
-        _kernels.check(rc, "descriptor_hist")
-        descriptor_hist.launches += 1
+            fn = bind(_kernels.load("desc3d"))
+            args = c_args(vol, starts, tab, rot, out, crop=crop, scale=scale,
+                          unit_xyz=unit_xyz)
+            _kernels.launch(descriptor_hist, lambda: fn(*args[:-1]))
     return out
 
 
 descriptor_hist.launches = 0  # kernel launches, for run-level checks
+descriptor_hist.events = None  # a list: (start, end) CUDA events a launch
 
 
 def construct_descriptor_fused(vol, xi, yi, zi, rot, truncate, *, crop,

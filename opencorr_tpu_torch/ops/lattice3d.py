@@ -61,12 +61,21 @@ def lattice_eval_3d_plain(eblk: torch.Tensor, dz: torch.Tensor,
     return torch.where(ok, acc, torch.zeros_like(acc))
 
 
-def _lib():
-    lib = _kernels.load("lattice3d")
+def bind(lib: ctypes.CDLL):
+    """The kernel's C entry point in a loaded library, typed."""
     fn = lib.oc_lattice_eval_3d
     fn.argtypes = [_P] * 8 + [_I] * 8 + [_P]
     fn.restype = _I
     return fn
+
+
+def c_args(eblk, dz, dy, dx, fz, fy, fx, out, d_wobble: int):
+    """The C entry point's arguments for checked tensors, on the current
+    stream."""
+    return (eblk.data_ptr(), dz.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            fz.data_ptr(), fy.data_ptr(), fx.data_ptr(), out.data_ptr(),
+            *dz.shape, *eblk.shape[1:], 2 * d_wobble,
+            torch.cuda.current_stream().cuda_stream)
 
 
 def lattice_eval_3d(eblk: torch.Tensor, dz: torch.Tensor, dy: torch.Tensor,
@@ -104,14 +113,11 @@ def lattice_eval_3d(eblk: torch.Tensor, dz: torch.Tensor, dy: torch.Tensor,
                       device=eblk.device)
     if n:
         with torch.cuda.device(eblk.device):
-            rc = _lib()(eblk.data_ptr(), dz.data_ptr(), dy.data_ptr(),
-                        dx.data_ptr(), fz.data_ptr(), fy.data_ptr(),
-                        fx.data_ptr(), out.data_ptr(), n, sz, sy, sx,
-                        ext[1], ext[2], ext[3], 2 * d_wobble,
-                        torch.cuda.current_stream().cuda_stream)
-        _kernels.check(rc, "lattice_eval_3d")
-        lattice_eval_3d.launches += 1
+            fn = bind(_kernels.load("lattice3d"))
+            _kernels.launch(lattice_eval_3d, lambda: fn(*c_args(
+                eblk, dz, dy, dx, fz, fy, fx, out, d_wobble)))
     return out
 
 
 lattice_eval_3d.launches = 0  # kernel launches, for run-level checks
+lattice_eval_3d.events = None  # a list: (start, end) CUDA events a launch

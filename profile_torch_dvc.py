@@ -14,9 +14,9 @@ sub-volume, then runs SIFT3D() -> FeatureAffine3D(16, 16, 16) ->
 ICGN3D1(16, 16, 16, 0.001, 10) on the 78,246 POIs of the 568x288x940
 Torus-size pair.  Either runs under ``torch.profiler`` and prints, per
 stage, the host wall time, the device time of the kernels launched in it
-(their sum over the wall time is the device's busy share) and the kernels
-that took the most of it, as JSON lines, the card's name and power limit
-before the last line.
+(their sum over the wall time is the device's busy share), the kernels
+that took the most of it and the port's own kernels, as JSON lines, the
+card's name and power limit before the last line.
 """
 
 from __future__ import annotations
@@ -27,6 +27,12 @@ import json
 import os
 import sys
 import time
+
+
+# the port's hand-written kernels, by the names of their __global__
+# functions: reported in every stage whether or not they are in its top
+PORT_KERNELS = ("gather_windows_kernel", "lattice2d_kernel",
+                "lattice3d_kernel", "desc3d_kernel")
 
 
 def _dvc_path(torch, cs, ot):
@@ -134,7 +140,10 @@ def main() -> int:
             busy_share=busy / wall if wall else None, kernels=len(mine),
             top=[dict(name=k[:120], device_ms=v[0], launches=v[1],
                       share=v[0] / busy if busy else None)
-                 for k, v in top])
+                 for k, v in top],
+            port_kernels={k: dict(device_ms=v[0], launches=v[1])
+                          for k, v in by_name.items()
+                          if any(p in k for p in PORT_KERNELS)})
     for name, rec in out.items():
         print(json.dumps({"stage": name, "pois": pois.n, **rec}), flush=True)
     print(json.dumps(stats()), flush=True)

@@ -6,9 +6,11 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Gather: bit-exact, corners clamped into the image.  Lattice (2D and 3D):
-within 1e-6 x max|eblk|, and exactly 0 where a placement offset is out of
-range.  The SIFT3D descriptor histogram: within 1e-5 x max|S| (float
-atomics sum in an order that varies from run to run).  The DVC modules and
+within 1e-6 x max|eblk| (the 3D kernel also ``==`` on the shapes that
+exercise its ring of staged planes), and exactly 0 where a placement
+offset is out of range.  The SIFT3D descriptor histogram: within 1e-5 x
+max|S| (float atomics sum in an order that varies from run to run), on
+white noise and on blurred volumes.  The DVC modules and
 the SIFT3D slice: cuda against cpu on small pairs."""
 
 import numpy as np
@@ -59,18 +61,20 @@ def _out_of_range(dy, dx, d):
 
 def _lattice3d_inputs(n, s, d, seed):
     """eblk [n, s+w-1, ...] and the six [n, s, s, s] sample arrays at
-    wobble ``d``, with out-of-range offsets (-1 and 2d+1, and far ones)
-    injected on every axis."""
+    wobble ``d`` (``s`` an int, or the side per axis (sz, sy, sx)), with
+    out-of-range offsets (-1 and 2d+1, and far ones) injected on every
+    axis."""
     rng = np.random.default_rng(seed)
-    e = s + 3 + 2 * d
-    eblk = np.round(rng.uniform(0, 255, (n, e, e, e))).astype(np.float32)
+    side = (s,) * 3 if np.isscalar(s) else tuple(s)
+    ext = tuple(x + 3 + 2 * d for x in side)
+    eblk = np.round(rng.uniform(0, 255, (n, *ext))).astype(np.float32)
     offs = []
     for far in ((-4, 30), (-2, 77), (-9, 5 + 2 * d)):
-        a = rng.integers(0, 2 * d + 1, (n, s, s, s)).astype(np.int32)
+        a = rng.integers(0, 2 * d + 1, (n, *side)).astype(np.int32)
         bad = rng.uniform(size=a.shape) < 0.05
         a[bad] = rng.choice([-1, 2 * d + 1, *far], bad.sum())
         offs.append(a)
-    fracs = [rng.uniform(0, 1, (n, s, s, s)).astype(np.float32)
+    fracs = [rng.uniform(0, 1, (n, *side)).astype(np.float32)
              for _ in range(3)]
     fracs[2][0, 0, 0, :4] = [0.0, np.float32(np.nextafter(1, 0)), 0.5, 0.25]
     return (eblk, *offs, *fracs)
@@ -148,6 +152,30 @@ def test_lattice3d_kernel_vs_plain(cuda, d, n, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,n,side", [
+    (1, 150, (37, 33, 33)),  # runs of planes that do not divide 37
+    (1, 7, (37, 61, 45)),  # r=30 rows: two bands; ragged runs
+    (1, 2, (5, 64, 201)),  # wide rows: five bands of 13 and 12 rows
+    (1, 5, (9, 6, 6)),  # 11x11 planes: a range that is not 16-byte aligned
+    (2, 3, (11, 20, 9)),  # D=2: a ring of 9 planes
+])
+def test_lattice3d_kernel_equals_plain(cuda, d, n, side):
+    """The ring of staged planes on shapes that split a POI into runs of
+    planes and bands of rows, or stage ranges off the 16-byte grid: equal
+    to the plain version with ``==``, 0 out of range on every axis."""
+    arrs = [torch.from_numpy(a).to(cuda)
+            for a in _lattice3d_inputs(n, side, d, seed=sum(side))]
+    got = lattice3d.lattice_eval_3d(*arrs, d_wobble=d)
+    want = lattice3d.lattice_eval_3d_plain(*arrs, d_wobble=d)
+    torch.cuda.synchronize()
+    bad = _out_of_range_3d(*arrs[1:4], d)
+    for a in arrs[1:4]:
+        assert ((a < 0) | (a > 2 * d)).any()
+    assert (got[bad] == 0).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_lattice3d_wrapper_refuses_bad_tensors(cuda):
     arrs = [torch.from_numpy(a).to(cuda)
             for a in _lattice3d_inputs(2, 5, 1, seed=0)]
@@ -212,11 +240,17 @@ def test_dvc_modules_cuda_match_cpu(cuda):
                                atol=1e-4)
 
 
-def _desc_inputs(k, crop, scale, seed, shape=(80, 84, 90)):
-    """A random volume, k keypoints (a quarter within 2 voxels of a face),
-    random rotations, and their window starts and tables."""
+def _desc_inputs(k, crop, scale, seed, shape=(80, 84, 90), blur=0.0):
+    """A random volume (Gaussian-blurred at ``blur`` voxels when given), k
+    keypoints (a quarter within 2 voxels of a face), random rotations, and
+    their window starts and tables."""
+    from scipy.ndimage import gaussian_filter
+
     rng = np.random.default_rng(seed)
-    vol = torch.from_numpy(np.float32(128 + 40 * rng.standard_normal(shape)))
+    noise = 128 + 40 * rng.standard_normal(shape)
+    if blur:
+        noise = gaussian_filter(noise, blur)
+    vol = torch.from_numpy(np.float32(noise))
     coords = [rng.integers(0, d, k) for d in shape]
     for j in range(k // 4):
         coords[j % 3][j] = rng.choice([0, 1, shape[j % 3] - 2])
@@ -255,6 +289,33 @@ def test_desc3d_kernel_vs_plain(cuda, crop_r, scale, k):
     want = torch.cat([desc3d.descriptor_hist_plain(
         *(a[lo:lo + 300] if i else a for i, a in enumerate(args)), **kw)
         for lo in range(0, k, 300)])
+    m = float(want.abs().max())
+    assert m > 0
+    assert float((got - want).abs().max()) <= 1e-5 * m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop,scale,k,blur,shape", [
+    ((23, 23, 23), 1.6, 1100, 1.6, (80, 84, 90)),  # one block a keypoint
+    ((29, 29, 29), 2.0159, 600, 2.0, (80, 84, 90)),  # z-bands
+    ((10, 14, 20), 0.9, 700, 1.0, (80, 84, 90)),  # a box of unequal sides
+    ((50, 50, 50), 3.5, 12, 3.0, (110, 112, 114)),  # more rows than a block
+])
+def test_desc3d_kernel_on_blurred_volumes(cuda, crop, scale, k, blur,
+                                          shape):
+    """Blurred volumes, where neighbouring voxels share their face and tent
+    bins and the kernel merges their adds across the warp, above and below
+    the 1,056 blocks it aims for, with windows clamped at the faces, and a
+    crop whose 101x101 (z, y) rows exceed one block's row table: every
+    keypoint within 1e-5 x max|S| of the plain version."""
+    args = [a.to(cuda) for a in _desc_inputs(k, crop, scale, seed=k,
+                                             shape=shape, blur=blur)]
+    kw = dict(crop=crop, scale=scale, unit_xyz=(1.0, 1.0, 1.0))
+    got = desc3d.descriptor_hist(*args, **kw)
+    want = torch.cat([desc3d.descriptor_hist_plain(
+        *(a[lo:lo + 300] if i else a for i, a in enumerate(args)), **kw)
+        for lo in range(0, k, 300)])
+    torch.cuda.synchronize()
     m = float(want.abs().max())
     assert m > 0
     assert float((got - want).abs().max()) <= 1e-5 * m
