@@ -4,24 +4,23 @@ sources, on the same inputs on one GPU.
 
 Run from the root of the repository:
 
-    python3 bench_torch_kernels.py [--parent DIR]
+    python3 bench_torch_kernels.py [--build TAG=DIR ...]
 
 It builds ``csrc/lattice3d.cu`` and ``csrc/desc3d.cu`` as the package does
-("new"), the same two files from ``DIR`` when given ("parent", e.g. an
-earlier commit's ``opencorr_tpu_torch/csrc`` unpacked with ``git show``),
-and measurement builds of the two (the ``VARIANTS`` below: for kernel 4
-the warp's lanes on consecutive voxels, 40 registers, no adds to S, and
-gradients from the voxel index instead of the volume, the last two timing
-only what is left; for kernel 3 other block sizes).  Then, on one set of
-inputs per case, each build's C entry point is timed with CUDA events in
-turns (parent, new, new, parent; the variants after), and every build but
-the two ablations is held to the plain PyTorch version:
+("new") and, for each ``--build``, whichever of the two files ``DIR`` holds
+(for example an earlier commit's ``opencorr_tpu_torch/csrc`` unpacked with
+``git show``, or an edited copy in a gitignored directory).  Then, on one
+set of inputs per case, each build's C entry point is timed with CUDA
+events in turns (the other builds, new, new, the other builds in reverse),
+and every build is held to the plain PyTorch version:
 
 * kernel 3 at one DVC chunk (ICGN3D1's auto chunk of the 5,733-POI queue
-  at r=30, 441 x 61^3 on an 80 GB card) and one SIFT-path chunk (of the
-  78,246-POI queue at r=16, 2,795 x 33^3), with offsets and fractions from
-  a smooth affine warp per POI, as ICGN3D1 makes them ("path"), and with
-  random ones, 2% out of range ("random"): bit-equal (``==``);
+  at r=30, 441 x 61^3 on an 80 GB card), one SIFT-path chunk (of the
+  78,246-POI queue at r=16, 2,795 x 33^3) and, at a radius no driven path
+  uses, one chunk of the same queue at r=20, with offsets and fractions
+  from a smooth affine warp per POI, as ICGN3D1 makes them ("path"), and
+  at the two paths' chunks also with random ones, 2% out of range
+  ("random"): bit-equal (``==``), out-of-range samples exactly 0;
 * kernel 4 at the Torus path's octave-0 counts and crops (4,689 / 12,187 /
   13,808 keypoints at 23 / 29 / 36) on a 96x100x120 volume Gaussian-blurred
   at the layer's sigma ("blurred") and on white noise ("noise"): within
@@ -44,52 +43,41 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-VARIANTS = {"consec": ["-DDESC3D_SPREAD=0"],
-            "min6": ["-DDESC3D_MIN_BLOCKS=6"],
-            "noadds": ["-DDESC3D_ABLATE=1"], "notaps": ["-DDESC3D_ABLATE=2"]}
-# builds that give wrong results by design: timed, not checked
-ABLATIONS = ("noadds", "notaps")
-LATTICE_VARIANTS = {
-    "t512x2": ["-DLATTICE3D_MAX_THREADS=512", "-DLATTICE3D_MIN_BLOCKS=2"],
-    "t256x4": ["-DLATTICE3D_MAX_THREADS=256", "-DLATTICE3D_MIN_BLOCKS=4"],
-    "t1024": ["-DLATTICE3D_MAX_THREADS=1024", "-DLATTICE3D_MIN_BLOCKS=1"]}
+KERNELS = ("lattice3d", "desc3d")
+# a subset radius that neither driven path uses, timed for kernel 3
+OTHER_R = 20
 
 
-def build_all(kernels, parent):
-    """{(kernel, build): typed C entry point}, one nvcc each, in parallel."""
+def build_all(others):
+    """{(kernel, build): typed C entry point}, one nvcc each, in parallel.
+    ``others`` maps a build's tag to a directory of sources."""
     from opencorr_tpu_torch.ops import _kernels, desc3d, lattice3d
 
     bind = {"lattice3d": lattice3d.bind, "desc3d": desc3d.bind}
-    _kernels.build(kernels)
-    out = {(k, "new"): bind[k](_kernels.load(k)) for k in kernels}
-    jobs = []
-    if parent:
-        jobs += [(k, "parent", Path(parent) / f"{k}.cu", []) for k in kernels]
-    if "desc3d" in kernels:
-        jobs += [("desc3d", v, _kernels.CSRC / "desc3d.cu", f)
-                 for v, f in VARIANTS.items()]
-    if "lattice3d" in kernels:
-        jobs += [("lattice3d", v, _kernels.CSRC / "lattice3d.cu", f)
-                 for v, f in LATTICE_VARIANTS.items()]
+    _kernels.build(KERNELS)
+    out = {(k, "new"): bind[k](_kernels.load(k)) for k in KERNELS}
     bdir = _kernels.BUILD_DIR / "bench"
     bdir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for k, tag, src, flags in jobs:
-        so = bdir / f"lib{k}-{tag}.so"
-        procs.append((k, tag, so, subprocess.Popen(
-            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, *flags, "-o", str(so),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+    for tag, src_dir in others.items():
+        for k in KERNELS:
+            src = Path(src_dir) / f"{k}.cu"
+            if not src.exists():
+                continue
+            so = bdir / f"lib{k}-{tag}.so"
+            procs.append((k, tag, so, subprocess.Popen(
+                [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(so),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
     for k, tag, so, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            print(f"build {k} {tag} failed:\n{log[-3000:]}", flush=True)
-            continue
+            raise RuntimeError(f"build {k} {tag} failed:\n{log[-3000:]}")
         for ln in log.splitlines():
             if "registers" in ln:
                 print(f"build {k} {tag}: {ln.strip()}", flush=True)
         out[(k, tag)] = bind[k](ctypes.CDLL(str(so)))
-    for k in kernels:
+    for k in KERNELS:
         for ln in _kernels.BUILD_LOGS.get(k, "").splitlines():
             if "registers" in ln:
                 print(f"build {k} new: {ln.strip()}", flush=True)
@@ -97,11 +85,11 @@ def build_all(kernels, parent):
 
 
 def in_turns(torch, cs, fns, reps):
-    """Mean ms of each build, parent and new interleaved."""
-    order = [b for b in ("parent", "new", "new", "parent") if b in fns]
-    order += [b for b in fns if b not in ("parent", "new")]
+    """Mean ms of each build: the other builds, new, new, the other builds
+    in reverse."""
+    others = [b for b in fns if b != "new"]
     ms = {}
-    for b in order:
+    for b in others + ["new", "new"] + others[::-1]:
         ms.setdefault(b, []).append(cs.cuda_ms(torch, fns[b], reps))
     return {b: sum(v) / len(v) for b, v in ms.items()}
 
@@ -163,8 +151,6 @@ def bench_desc(torch, cs, fns, vol, crop, scale, k, kind, rng, reps):
         if calls[b]() != 0:
             raise RuntimeError(f"desc3d {b}: launch failed")
         torch.cuda.synchronize()
-        if b in ABLATIONS:
-            continue
         err[b] = float((out - want).abs().max())
         if not err[b] <= tol:
             raise AssertionError(f"desc3d {b}, {k} keypoints at crop {crop} "
@@ -183,9 +169,13 @@ def bench_desc(torch, cs, fns, vol, crop, scale, k, kind, rng, reps):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--parent", help="directory holding an earlier "
-                        "lattice3d.cu and desc3d.cu")
+    parser.add_argument("--build", action="append", default=[],
+                        metavar="TAG=DIR", help="a directory holding other "
+                        "sources of lattice3d.cu and/or desc3d.cu")
     args = parser.parse_args()
+    others = dict(b.split("=", 1) for b in args.build)
+    if "new" in others:
+        parser.error("the tag 'new' names the package's own build")
     import torch
 
     if not torch.cuda.is_available():
@@ -199,14 +189,17 @@ def main() -> int:
 
     card = cs.card_line()
     print(card, flush=True)
-    fns = build_all(["lattice3d", "desc3d"], args.parent)
+    fns = build_all(others)
     by = lambda kern: {b: f for (k, b), f in fns.items() if k == kern}
     gen = torch.Generator(device="cuda").manual_seed(7)
     rng = np.random.default_rng(7)
-    for n, s in cs.lattice3d_chunks(torch):
-        for kind in ("path", "random"):
-            bench_lattice(torch, cs, by("lattice3d"), n, s, 1, kind, gen, 10)
-            torch.cuda.empty_cache()
+    n_other = ot.ICGN3D1(OTHER_R, OTHER_R, OTHER_R, device="cuda").auto_chunk(
+        int(np.prod(cs.TORUS_GRID[1:4])))
+    cases = [(n, s, kind) for n, s in cs.lattice3d_chunks(torch)
+             for kind in ("path", "random")]
+    for n, s, kind in cases + [(n_other, 2 * OTHER_R + 1, "path")]:
+        bench_lattice(torch, cs, by("lattice3d"), n, s, 1, kind, gen, 10)
+        torch.cuda.empty_cache()
 
     layers = ot.SIFT3D(device="cuda")._plan_layers(cs.TORUS_SHAPE)[1:4]
     shape = (96, 100, 120)

@@ -311,8 +311,8 @@ def lattice3d_inputs(torch, n, s, d, kind, gen):
     displacement gradient of N(0, 0.003) per entry, the samples' local
     coordinates split into floor offsets (D at rest) and fractions as
     ICGN3D1 splits them, so neighbouring samples share offsets; "random":
-    uniform offsets in [0, 2D], 2% of them out of range (-7 on z, 40 on y,
-    2D+9 on x), and uniform fractions."""
+    uniform offsets in [0, 2D], 2% of them out of range (-1, 2D+1, or -7
+    on z, 40 on y, 2D+9 on x), and uniform fractions."""
     dev = torch.device("cuda")
     e = s + 3 + 2 * d
     eblk = torch.round(torch.rand((n, e, e, e), generator=gen, device=dev)
@@ -334,7 +334,11 @@ def lattice3d_inputs(torch, n, s, d, kind, gen):
         for far in (-7, 40, 2 * d + 9):
             a = torch.randint(0, 2 * d + 1, (n, s, s, s), generator=gen,
                               device=dev, dtype=torch.int32)
-            a[torch.rand(a.shape, generator=gen, device=dev) < 0.02] = far
+            bad = torch.rand(a.shape, generator=gen, device=dev) < 0.02
+            vals = torch.tensor([-1, 2 * d + 1, far], dtype=torch.int32,
+                                device=dev)
+            a[bad] = vals[torch.randint(0, 3, (int(bad.sum()),),
+                                        generator=gen, device=dev)]
             offs.append(a)
             fracs.append(torch.rand(a.shape, generator=gen, device=dev))
     return eblk, offs, fracs

@@ -38,8 +38,8 @@
 // What the time goes to: the 24 adds of a live voxel.  A float atomicAdd
 // on shared memory has no instruction of its own on sm_90; it compiles to
 // a compare-and-swap loop (ATOMS.CAST.SPIN), and same-address adds from one
-// warp retry.  Without the adds the kernel takes about a third of its time
-// (bench_torch_kernels.py, variant noadds).
+// warp retry.  A build without the adds takes about a third of the time
+// on an H100 (PERF.md).
 //
 // Design: one block per keypoint, or per (keypoint, z-band) when a layer
 // has too few keypoints to fill the card or a box too many rows, all
@@ -68,26 +68,11 @@
 #include <stdint.h>
 #include <string.h>
 
-// Build switches for measurement (bench_torch_kernels.py builds the
-// variants; the package builds the defaults).  DESC3D_SPREAD 0 gives the
-// lanes of a warp consecutive voxels; DESC3D_MIN_BLOCKS sets the blocks an
-// SM the registers must allow.  DESC3D_ABLATE 1 sums each thread's values
-// in a register instead of adding them to S, 2 makes the gradients from
-// the voxel index instead of the volume: both give wrong histograms and
-// only time what is left.
-#ifndef DESC3D_SPREAD
-#define DESC3D_SPREAD 1
-#endif
-#ifndef DESC3D_MIN_BLOCKS
-#define DESC3D_MIN_BLOCKS 8
-#endif
-#ifndef DESC3D_ABLATE
-#define DESC3D_ABLATE 0
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
+// blocks an SM the registers must allow
+constexpr int kMinBlocks = 8;
 constexpr int kRows = 60;
 constexpr int kCols = 64;
 constexpr int kPitch = 65;
@@ -114,7 +99,7 @@ __device__ __forceinline__ float sub_cube(float r, float cr, float inv_cr) {
                    0.5f);
 }
 
-__global__ void __launch_bounds__(kThreads, DESC3D_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 desc3d_kernel(const float* __restrict__ vol,
               const int32_t* __restrict__ starts,
               const float* __restrict__ tab, const float* __restrict__ rot,
@@ -222,14 +207,10 @@ desc3d_kernel(const float* __restrict__ vol,
   const size_t sy = (size_t)p.dx;
   const size_t sz = (size_t)p.dy * p.dx;
   // this thread's voxel of each round (see the design note)
-  const int slot = DESC3D_SPREAD ? (int)(__brev(threadIdx.x) >> 24)
-                                 : (int)threadIdx.x;
+  const int slot = (int)(__brev(threadIdx.x) >> 24);
   // the row of the thread's voxel, where that row's voxels start, and the
   // row's (z, y)
   int r = 0, rstart = 0, iz = zlo, iy = 0;
-#if DESC3D_ABLATE == 1
-  float sink = 0.0f;
-#endif
 
   for (int v = slot; v < total; v += kThreads) {
     int e = rowtab[r];
@@ -244,11 +225,6 @@ desc3d_kernel(const float* __restrict__ vol,
     const int ix = (e & 255) + (v - rstart);
     const float w = __fmul_rn(wz[iz], __fmul_rn(wy[iy], wx[ix]));
     if (w == 0.0f) continue;  // volume border: the gradient is zeroed
-#if DESC3D_ABLATE == 2
-    const float gx = __fmul_rn((float)((ix * 7 ^ iy * 5 ^ iz) & 31), w);
-    const float gy = __fmul_rn((float)((ix * 3 ^ iz * 9 ^ iy) & 31), w);
-    const float gz = __fmul_rn((float)((iy * 11 ^ iz * 3 ^ ix) & 31), w);
-#else
     const float* c = vol + (size_t)(z0 + iz) * sz + (size_t)(y0 + iy) * sy +
                      (size_t)(x0 + ix);
     const float gx =
@@ -257,7 +233,6 @@ desc3d_kernel(const float* __restrict__ vol,
         __fmul_rn(__fmul_rn(__fsub_rn(__ldg(c + sy), __ldg(c - sy)), p.hy), w);
     const float gz =
         __fmul_rn(__fmul_rn(__fsub_rn(__ldg(c + sz), __ldg(c - sz)), p.hz), w);
-#endif
     const float gg[3] = {dot3(R + 0, gx, gy, gz), dot3(R + 3, gx, gy, gz),
                          dot3(R + 6, gx, gy, gz)};
     const float sx = sub_cube(dot3(R + 0, px[ix], py[iy], pz[iz]), p.cr,
@@ -316,20 +291,13 @@ desc3d_kernel(const float* __restrict__ vol,
           const int col = (bin[0][bz] * 4 + bin[1][by]) * 4 + bin[2][bx];
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
-#if DESC3D_ABLATE == 1
-            sink = __fadd_rn(sink, __fmul_rn(ag[a], cw));
-#else
             atomicAdd(&S[(a * 20 + face) * kPitch + col],
                       __fmul_rn(ag[a], cw));
-#endif
           }
         }
       }
     }
   }
-#if DESC3D_ABLATE == 1
-  atomicAdd(&S[threadIdx.x], sink);
-#endif
   __syncthreads();
 
   float* o = out + (size_t)kp * kRows * kCols;

@@ -36,31 +36,23 @@
 // bands of 31 rows, 67 KB; at r=16 the whole 38x38 plane, 41 KB); a block
 // has at most 384 threads, sized so that they take whole rounds of a
 // plane's samples, and 56 registers; runs of planes split a POI only when
-// too few blocks would fill the card.  The paths' row pitches (66 and 38)
-// are compile-time constants of their own instances.  Threads read the six
-// sample arrays and write the output coalesced, streaming past L1, with
-// the next sample's loads issued before the current one's 64 taps.  Every
-// product and sum is rounded separately (no FMA contraction), in the order
-// of the plain PyTorch version, so the two agree to the last bit on the
-// same inputs.
+// too few blocks would fill the card.  Threads read the six sample arrays
+// and write the output coalesced, streaming past L1, with the next
+// sample's loads issued before the current one's 64 taps.  Every product
+// and sum is rounded separately (no FMA contraction), in the order of the
+// plain PyTorch version, so the two agree to the last bit on the same
+// inputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// Build switches for measurement (bench_torch_kernels.py builds variants;
-// the package builds the defaults): threads a block at most, blocks an SM
-// aimed for, and the shared memory a block may take.
-#ifndef LATTICE3D_MAX_THREADS
-#define LATTICE3D_MAX_THREADS 384
-#endif
-#ifndef LATTICE3D_MIN_BLOCKS
-#define LATTICE3D_MIN_BLOCKS 3
-#endif
-constexpr int kMaxThreads = LATTICE3D_MAX_THREADS;
+// Threads a block at most, and blocks an SM aimed for.
+constexpr int kMaxThreads = 384;
+constexpr int kMinBlocks = 3;
 // Shared memory per block: at most this, so that the blocks fit on an SM.
-constexpr int kSmemBudget = (227 / LATTICE3D_MIN_BLOCKS) * 1024 - 1024;
+constexpr int kSmemBudget = (227 / kMinBlocks) * 1024 - 1024;
 // Aim for this many waves of resident blocks before splitting POIs into
 // runs of planes.
 constexpr int kWaves = 4;
@@ -132,11 +124,7 @@ __device__ __forceinline__ void bulk_load(float* dst, const void* src,
       : "memory");
 }
 
-// EX > 0 fixes the staged row pitch at compile time, so that a sample's 16
-// tap rows are immediate offsets from one address per plane; EX = 0 reads
-// it from g.ex.
-template <int EX>
-__global__ void __launch_bounds__(kMaxThreads, LATTICE3D_MIN_BLOCKS)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 lattice3d_kernel(const float* __restrict__ eblk,
                  const int32_t* __restrict__ dz,
                  const int32_t* __restrict__ dy,
@@ -197,7 +185,7 @@ lattice3d_kernel(const float* __restrict__ eblk,
   const int dj = T / g.sx;
   const int di = T - dj * g.sx;
   const unsigned dmax = (unsigned)g.dmax;
-  const int ex = EX > 0 ? EX : g.ex;
+  const int ex = g.ex;
 
   for (int t = 0; t < nk; ++t) {
     if (t == 0) {
@@ -319,15 +307,13 @@ extern "C" int oc_lattice_eval_3d(const float* eblk, const int32_t* dz,
   const int rounds = (per_plane + kMaxThreads - 1) / kMaxThreads;
   const int threads = ((per_plane + rounds - 1) / rounds + 31) / 32 * 32;
 
-  // the row pitches of the paths' subsets: r=30 and r=16 at D=1
-  auto kernel = ex == 66 ? lattice3d_kernel<66>
-                : ex == 38 ? lattice3d_kernel<38> : lattice3d_kernel<0>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      lattice3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lattice3d_kernel,
+                                                    threads, smem);
   if (e != cudaSuccess) return (int)e;
   e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -345,7 +331,7 @@ extern "C" int oc_lattice_eval_3d(const float* eblk, const int32_t* dz,
   const long long blocks = base * g.nruns;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
-    kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+    lattice3d_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
         eblk, dz, dy, dx, fz, fy, fx, out, g);
   }
   return (int)cudaGetLastError();
