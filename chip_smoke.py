@@ -13,8 +13,11 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    all started together).
 2. Each kernel against its plain PyTorch version on the card at the main
    paths' shapes: the window gather bit-exact at 30k x 32x32, 33x33 and
-   40x40 and 940 x 48x48 with corners that need clamping; the 2D lattice
-   eval at D=2 (30k POIs) and D=6 (940 POIs) within 1e-6 x max|eblk|; the
+   40x40, 940 x 48x48 and the stereo path's epipolar candidates at 41x41
+   (16,379 windows, every chunk's, from the search's own chunk rule) with
+   corners that need clamping; the 2D lattice eval at D=2
+   (30k and 10k POIs) and D=6 (940 and 312 POIs) within 1e-6 x max|eblk|;
+   the
    3D lattice eval at D=1 at one ICGN3D1 chunk of the DVC path (441 x
    61^3) and of the SIFT path (2,795 x 33^3), on offsets from a smooth
    affine warp per POI (as ICGN3D1 makes them) and on random ones, equal
@@ -66,7 +69,28 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    64x64x72 pair: keypoint counts and matched sets equal; FeatureAffine3D
    on the same matches with the same RANSAC draws: codes equal, p within
    1e-4; ICGN3D1 from the same seeds: codes equal, u/v/w within 1e-3 voxel.
-9. JSON lines: per-kernel records, the stage times, and last
+9. The stereo slice's modules on ``cuda`` and on ``cpu`` on a 288x352
+   crop of phase 10's scene (the cameras' principal points moved to the
+   crop's corner): SIFT2D's octave counts equal and matched sets within 1%;
+   FeatureAffine2D on the cpu's matches: codes equal, p within 1e-4;
+   EpipolarSearch, then ICGN2D2 from the cpu's epipolar table: codes
+   equal, u/v within 1e-3 px; ``reconstruct`` within 1e-3 mm.
+10. The stereo path on ``cuda`` at the GT4 pair's size, 1920x1200 8-bit:
+   a speckled plate rendered in float64 through the example's two cameras
+   (pixel -> undistorted ray -> plane -> texture), the targets the plate
+   moved by STEREO_SHIFT mm and stretched 0.5% in-plane; 10,000 POIs on a
+   grid.  ``examples/stereo_3d_dic_epipolar_sift.run`` (EpipolarSearch ->
+   ICGN2D2, SIFT2D -> FeatureAffine2D -> ICGN2D1, the cross match, the
+   triangulation, ``save_table_2ds``) and ``examples/stereo_strain.run``,
+   after a warm-up on the crop; kernels 1 and 2 counted and timed per
+   launch, summed per launch shape (the epipolar gathers must be the
+   shapes phase 2 checked).  Prints the epipolar reach, every SIFT2D
+   octave's counts beside
+   its caps, the matches and FeatureAffine2D's codes; checks each pair's
+   converged fraction (>= 0.9), each view's mean position error (< 0.02
+   px) and the mean 3D displacement error against the bound from moving
+   every matched coordinate by 0.02 px.
+11. JSON lines: per-kernel records, the stage times, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -127,6 +151,42 @@ TORUS_KEPT_OCT1 = (5942, 1507, 564)
 # each keypoint's box into z-bands.
 DESC_TARGET_BLOCKS = 132 * 8
 DESC_PLAIN_CHUNK = 1024
+# The stereo path (test_3d_dic_epipolar_sift): GT4's image size [H, W], the
+# example's two cameras (examples/stereo_3d_dic_epipolar_sift.py:48-57) as
+# (intrinsics, extrinsics), its parallax estimate, and a POI grid like
+# GT4-POIs.csv's 9,997 points (here 100 x 100 at step 10 px).
+STEREO_SIZE = (1200, 1920)
+STEREO_CAMS = (
+    (dict(fx=6673.315918, fy=6669.302734, fs=0.0, cx=872.15778,
+          cy=579.95532, k1=0.032258954, k2=-1.01141417, k3=29.78838921),
+     dict()),
+    (dict(fx=6607.618164, fy=6602.857422, fs=0.0, cx=917.9733887,
+          cy=531.6352539, k1=0.064598486, k2=-4.531373978, k3=29.78838921),
+     dict(tx=122.24886, ty=1.8488892, tz=17.624638, rx=0.00307711,
+          ry=-0.33278773, rz=0.00524556)))
+STEREO_PARALLAX = (-30.0, -40.0)
+STEREO_SEARCH = (30, 5)  # set_search(radius, step)
+STEREO_EPI_R = 20  # create_icgn(20, 20, ...)
+STEREO_GRID = ((460, 100), 100, 100, 10)
+STEREO_POIS = STEREO_GRID[1] * STEREO_GRID[2]
+# The scene: a speckled plate on the plane through the point of camera 1's
+# ray through the image centre where the x parallax is the example's -30 px
+# (about 387 mm deep), its normal bisecting the two optical axes.  The
+# targets show it translated by STEREO_SHIFT mm and stretched in-plane by
+# STEREO_STRETCH about the moved centre point.  The shift is toward the
+# cameras: at +2 mm in z the cross match's true points would lie up to 29 px
+# along the epipolar line from the parallax estimate, past the search's
+# reach (25 px of candidates plus the coarse IC-GN's capture).  The speckle:
+# Gaussian-filtered noise of STEREO_SPECKLE cells at STEREO_CELL_MM a cell
+# (about 1 px in either view), 128 +- 28 grey levels, 8-bit, on a plate
+# STEREO_PLATE_PX view-1 pixels wider than the POI grid on each side; the
+# background is a uniform 128 without SIFT features.
+STEREO_SHIFT = (0.5, -0.3, -2.0)
+STEREO_STRETCH = 0.005
+STEREO_CELL_MM = 0.058
+STEREO_SPECKLE = 1.5
+STEREO_PLATE_PX = 70
+STEREO_TOL_PX = 0.02  # mean |position - truth| gate of r2, t1 and t2
 
 
 def log(*a):
@@ -189,11 +249,28 @@ def true_uv(x, y, center):
 
 def event_ms(wrapper):
     """Launch count and summed CUDA-event milliseconds of ``wrapper``'s
-    launches since its ``events`` list was set; stops the recording."""
+    launches since its ``events`` list was set, in all and per launch
+    shape; stops the recording."""
     ev, wrapper.events = wrapper.events, None
-    ms = [a.elapsed_time(b) for a, b in ev]
+    ms = [a.elapsed_time(b) for a, b, _ in ev]
+    by_shape = {}
+    for t, (_, _, shape) in zip(ms, ev):
+        rec = by_shape.setdefault("x".join(map(str, shape)),
+                                  dict(launches=0, ms_sum=0.0))
+        rec["launches"] += 1
+        rec["ms_sum"] += t
     return dict(launches=len(ms), ms_sum=sum(ms),
-                ms_per_launch=sum(ms) / len(ms) if ms else None)
+                ms_per_launch=sum(ms) / len(ms) if ms else None,
+                by_shape=by_shape)
+
+
+def epipolar_windows(ot):
+    """Candidate windows a chunk of the stereo path's EpipolarSearch
+    gathers: the search's own chunk rule over STEREO_POIS POIs (the last
+    chunk is padded to the full size, ``models/base.chunked``)."""
+    e = ot.EpipolarSearch(None, None, device="cpu")
+    e.set_search(*STEREO_SEARCH)
+    return min(e.chunk_pois(), STEREO_POIS) * len(e.candidate_offsets())
 
 
 def check(cond, what):
@@ -201,15 +278,21 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def phase_kernels(torch, img, rng, reps):
+def phase_kernels(torch, ot, img, rng, reps):
     """Kernel vs plain version on the card at the main path's shapes."""
     from opencorr_tpu_torch.ops import gather2d, lattice2d
 
     dev = img.device
-    h, w = img.shape
     records = {"gather": [], "lattice": []}
-    for n, sh, sw in ((30000, 32, 32), (30000, 33, 33), (30000, 40, 40),
-                      (940, 48, 48)):
+    # the stereo path's epipolar candidates: a chunk's POIs x 11 candidates
+    # at r=20, read from a GT4-size image
+    simg = torch.from_numpy(np.round(rng.uniform(0, 255, STEREO_SIZE)).astype(
+        np.float32)).to(dev)
+    side = 2 * STEREO_EPI_R + 1
+    for n, sh, sw, src in ((30000, 32, 32, img), (30000, 33, 33, img),
+                           (30000, 40, 40, img), (940, 48, 48, img),
+                           (epipolar_windows(ot), side, side, simg)):
+        h, w = src.shape
         y0 = rng.integers(0, h - sh + 1, n)
         x0 = rng.integers(0, w - sw + 1, n)
         bad = rng.uniform(size=n) < 0.1  # corners that need clamping
@@ -217,31 +300,34 @@ def phase_kernels(torch, img, rng, reps):
         x0[bad] = rng.integers(-sw, w + sw, bad.sum())
         y0 = torch.from_numpy(y0.astype(np.int32)).to(dev)
         x0 = torch.from_numpy(x0.astype(np.int32)).to(dev)
-        got = gather2d.gather_windows_2d(img, y0, x0, sh=sh, sw=sw)
-        want = gather2d.gather_windows_2d_plain(img, y0, x0, sh=sh, sw=sw)
+        got = gather2d.gather_windows_2d(src, y0, x0, sh=sh, sw=sw)
+        want = gather2d.gather_windows_2d_plain(src, y0, x0, sh=sh, sw=sw)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"gather {n}x{sh}x{sw} not bit-exact")
 
         def library():
             yc = y0.long().clamp(0, h - sh)
             xc = x0.long().clamp(0, w - sw)
-            return img.unfold(0, sh, 1).unfold(1, sw, 1)[yc, xc]
+            return src.unfold(0, sh, 1).unfold(1, sw, 1)[yc, xc]
 
         check(torch.equal(library(), want), "gather library call differs")
         nbytes = (h * w + n * sh * sw + 2 * n) * 4
         rec = dict(
             shape=[n, sh, sw], max_abs_err=0.0,
             ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d(
-                img, y0, x0, sh=sh, sw=sw), reps),
+                src, y0, x0, sh=sh, sw=sw), reps),
             plain_ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d_plain(
-                img, y0, x0, sh=sh, sw=sw), reps),
+                src, y0, x0, sh=sh, sw=sw), reps),
             library_ms=cuda_ms(torch, library, reps),
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             bytes=nbytes, clamped=int(bad.sum()))
         records["gather"].append(rec)
         log(json.dumps({"kernel": "gather_windows_2d", **rec}))
 
-    for n, d in ((30000, 2), (940, 6)):
+    # the main path's D=2 block and D=6 correction, and the stereo path's
+    # second-order ones (10,000 POIs; the correction cap max(256, n/32))
+    for n, d in ((30000, 2), (940, 6), (STEREO_POIS, 2),
+                 (max(256, STEREO_POIS // 32), 6)):
         s = 33
         wl = 4 + 2 * d
         eblk = torch.from_numpy(np.round(rng.uniform(
@@ -1103,6 +1189,465 @@ def phase_sift_cpu_agreement(torch, ot, shape=(64, 64, 72), r=TORUS_R):
     return res
 
 
+# --- the stereo scene (float64, independent of the port's Calibration) ----
+
+
+def rodrigues64(rx, ry, rz):
+    """Axis-angle vector -> float64 rotation matrix."""
+    v = np.array([rx, ry, rz], np.float64)
+    th = np.linalg.norm(v)
+    if th == 0.0:
+        return np.eye(3)
+    k = v / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * (kx @ kx)
+
+
+def stereo_camera(intr, extr, offset=(0, 0)):
+    """One camera as a dict: intrinsics (the principal point moved by
+    ``offset`` (x0, y0), the corner of a crop), rotation R, translation T."""
+    c = {k: 0.0 for k in ("fx", "fy", "fs", "cx", "cy", "k1", "k2", "k3",
+                          "k4", "k5", "k6", "p1", "p2")}
+    c.update(intr)
+    c["cx"] -= offset[0]
+    c["cy"] -= offset[1]
+    e = dict(dict(tx=0.0, ty=0.0, tz=0.0, rx=0.0, ry=0.0, rz=0.0), **extr)
+    c["R"] = rodrigues64(e["rx"], e["ry"], e["rz"])
+    c["T"] = np.array([e["tx"], e["ty"], e["tz"]], np.float64)
+    return c
+
+
+def _distort(c, x, y):
+    """oc_calibration.cpp:136-159 on normalized image coordinates."""
+    r2 = x * x + y * y
+    rad = ((1 + c["k1"] * r2 + c["k2"] * r2 ** 2 + c["k3"] * r2 ** 3)
+           / (1 + c["k4"] * r2 + c["k5"] * r2 ** 2 + c["k6"] * r2 ** 3))
+    return (x * rad + 2 * c["p1"] * x * y + c["p2"] * (r2 + 2 * x * x),
+            y * rad + c["p1"] * (r2 + 2 * y * y) + 2 * c["p2"] * x * y)
+
+
+def project64(c, pts):
+    """World points [N, 3] -> distorted sensor coordinates [N, 2]."""
+    xc = pts @ c["R"].T + c["T"]
+    x, y = _distort(c, xc[:, 0] / xc[:, 2], xc[:, 1] / xc[:, 2])
+    return np.stack([c["fx"] * x + c["fs"] * y + c["cx"],
+                     c["fy"] * y + c["cy"]], -1)
+
+
+def pixel_rays(c, u, v):
+    """Sensor coordinates -> (origin [3], unit directions [N, 3]) of the
+    rays they see, the distortion inverted by fixed-point iteration."""
+    yd = (v - c["cy"]) / c["fy"]
+    xd = (u - c["cx"] - c["fs"] * yd) / c["fx"]
+    x, y = xd, yd
+    for _ in range(50):
+        dx, dy = _distort(c, x, y)
+        x, y = x + (xd - dx), y + (yd - dy)
+        if max(np.abs(xd - dx).max(), np.abs(yd - dy).max()) < 1e-15:
+            break
+    d = np.stack([x, y, np.ones_like(x)], -1) @ c["R"]  # R^T d, row-wise
+    return -c["R"].T @ c["T"], d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def on_plane(c, u, v, point, normal):
+    """The points of the plane (point, normal) seen at sensor (u, v)."""
+    o, d = pixel_rays(c, np.asarray(u, np.float64), np.asarray(v, np.float64))
+    t = ((point - o) @ normal) / (d @ normal)
+    return o + d * t[:, None]
+
+
+class StereoScene:
+    """The speckled plate of the stereo path, seen by ``cams`` (two
+    ``stereo_camera`` dicts) in images of ``size`` [H, W]; the plate spans
+    the view-1 rectangle ``plate`` (x0, y0, x1, y1) on the plane.  Renders
+    each view by inverse mapping (pixel -> undistorted ray -> plane ->
+    material point -> texture) and gives the true matches of view-1
+    points."""
+
+    def __init__(self, cams, size, plate, seed):
+        from scipy.ndimage import gaussian_filter, spline_filter
+
+        self.cams, self.size = cams, size
+        c1, c2 = cams
+        h, w = size
+        # depth along camera 1's central ray where the x parallax is
+        # STEREO_PARALLAX[0] (bisection; the parallax grows with depth)
+        o, d = pixel_rays(c1, np.array([w / 2.0]), np.array([h / 2.0]))
+        par = lambda s: project64(c2, o + d * s)[0, 0] - w / 2.0
+        lo, hi = 50.0, 5000.0
+        if not (par(lo) - STEREO_PARALLAX[0]) * (par(hi) - STEREO_PARALLAX[0]) \
+                < 0:
+            raise AssertionError("no depth gives the example's parallax")
+        for _ in range(200):
+            mid = 0.5 * (lo + hi)
+            if (par(mid) - STEREO_PARALLAX[0]) * (par(lo) - STEREO_PARALLAX[0]) \
+                    > 0:
+                lo = mid
+            else:
+                hi = mid
+        self.x0 = (o + d * lo)[0]
+        axes = [cam["R"].T @ np.array([0.0, 0.0, 1.0]) for cam in cams]
+        n = -(axes[0] + axes[1])
+        self.normal = n / np.linalg.norm(n)
+        e1 = np.array([1.0, 0.0, 0.0]) - self.normal[0] * self.normal
+        self.e1 = e1 / np.linalg.norm(e1)
+        self.e2 = np.cross(self.normal, self.e1)
+        self.shift = np.array(STEREO_SHIFT, np.float64)
+        # the plate's texture: cells on the plane over the view-1 rectangle
+        px, py = np.meshgrid(np.linspace(plate[0], plate[2], 9),
+                             np.linspace(plate[1], plate[3], 9))
+        st = self.plane_coords(on_plane(c1, px.ravel(), py.ravel(), self.x0,
+                                        self.normal))
+        self.lo = st.min(0)
+        cells = np.ceil((st.max(0) - self.lo) / STEREO_CELL_MM).astype(int) + 1
+        rng = np.random.default_rng(seed)
+        tex = gaussian_filter(rng.standard_normal((cells[1], cells[0])),
+                              STEREO_SPECKLE)
+        tex = tex / tex.std() * 28.0 + 128.0
+        self.tex = spline_filter(tex, order=3)
+
+    def plane_coords(self, pts):
+        """Points on the reference plane -> (s, t) mm along (e1, e2)."""
+        rel = pts - self.x0
+        return np.stack([rel @ self.e1, rel @ self.e2], -1)
+
+    def moved(self, pts):
+        """Reference points -> where the motion takes them."""
+        return self.x0 + self.shift + (1.0 + STEREO_STRETCH) * (pts - self.x0)
+
+    def render(self, view, moved=False):
+        """One 8-bit view [H, W] of the reference (or moved) plate."""
+        from scipy.ndimage import map_coordinates
+
+        h, w = self.size
+        out = np.empty((h, w), np.uint8)
+        band = 128
+        for r0 in range(0, h, band):
+            vv, uu = np.mgrid[r0:min(r0 + band, h), 0:w].astype(np.float64)
+            pts = on_plane(self.cams[view], uu.ravel(), vv.ravel(),
+                           self.x0 + (self.shift if moved else 0.0),
+                           self.normal)
+            if moved:  # the material point now at pts
+                pts = self.x0 + (pts - self.x0 - self.shift) / (
+                    1.0 + STEREO_STRETCH)
+            st = (self.plane_coords(pts) - self.lo) / STEREO_CELL_MM
+            val = map_coordinates(self.tex, [st[:, 1], st[:, 0]], order=3,
+                                  mode="constant", cval=128.0,
+                                  prefilter=False)
+            out[r0:r0 + band] = np.clip(np.round(val), 0, 255).reshape(
+                vv.shape).astype(np.uint8)
+        return out
+
+    def truth(self, pts):
+        """View-1 points [N, 2] -> dict of true view-2 matches r2, moved
+        positions t1 and t2 [N, 2], reference 3D points and 3D
+        displacements [N, 3]."""
+        c1, c2 = self.cams
+        ref = on_plane(c1, pts[:, 0], pts[:, 1], self.x0, self.normal)
+        tar = self.moved(ref)
+        return dict(r2=project64(c2, ref), t1=project64(c1, tar),
+                    t2=project64(c2, tar), ref3d=ref, disp=tar - ref)
+
+
+def epipolar_reach(cams, src, dst):
+    """Distance (px) along view 2's epipolar line of each view-1 point
+    ``src`` from the projection of the parallax estimate to the true match
+    ``dst``, and its distance from the line (F from the undistorted
+    cameras, as EpipolarSearch uses it)."""
+    c1, c2 = cams
+    k = lambda c: np.array([[c["fx"], c["fs"], c["cx"]], [0, c["fy"], c["cy"]],
+                            [0, 0, 1.0]])
+    t = c2["T"]
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    f = np.linalg.inv(k(c2)).T @ tx @ c2["R"] @ np.linalg.inv(k(c1))
+    line = np.concatenate([src, np.ones((len(src), 1))], 1) @ f.T
+    slope, icp = -line[:, 0] / line[:, 1], -line[:, 2] / line[:, 1]
+    ex = src[:, 0] + STEREO_PARALLAX[0]
+    ey = src[:, 1] + STEREO_PARALLAX[1]
+    xv = (slope * (ey - icp) + ex) / (slope * slope + 1)
+    xd = (slope * (dst[:, 1] - icp) + dst[:, 0]) / (slope * slope + 1)
+    along = (xd - xv) * np.sqrt(1 + slope * slope)
+    off = np.abs(slope * dst[:, 0] - dst[:, 1] + icp) / np.sqrt(
+        1 + slope * slope)
+    return along, off
+
+
+def triangulate64(cams, p1, p2):
+    """Linear triangulation in float64 of sensor points [N, 2] in both
+    views (the distortion inverted as in ``pixel_rays``)."""
+    rows = []
+    for c, p in zip(cams, (p1, p2)):
+        o, d = pixel_rays(c, p[:, 0], p[:, 1])
+        rows.append((o, d))
+    # closest point of the two rays
+    (o1, d1), (o2, d2) = rows
+    w0 = o1 - o2
+    a, b, cc = (d1 * d1).sum(1), (d1 * d2).sum(1), (d2 * d2).sum(1)
+    dd, e = (d1 * w0).sum(1), (d2 * w0).sum(1)
+    den = a * cc - b * b
+    s = (b * e - cc * dd) / den
+    t = (a * e - b * dd) / den
+    return 0.5 * ((o1 + d1 * s[:, None]) + (o2 + d2 * t[:, None]))
+
+
+def displacement_bound(cams, pts, truth, px=STEREO_TOL_PX):
+    """Mean over POIs of the largest change of the triangulated 3D
+    displacement when each of the six matched coordinates (r2, t1, t2)
+    moves by ``px``: the sum over coordinates of |d disp / d coordinate| *
+    px, by central differences."""
+    base = dict(r2=truth["r2"], t1=truth["t1"], t2=truth["t2"])
+
+    def disp(m):
+        return (triangulate64(cams, m["t1"], m["t2"])
+                - triangulate64(cams, pts.astype(np.float64), m["r2"]))
+
+    total = np.zeros(len(pts))
+    for key in ("r2", "t1", "t2"):
+        for axis in (0, 1):
+            moved = []
+            for sign in (1.0, -1.0):
+                m = {k: v.copy() for k, v in base.items()}
+                m[key][:, axis] += sign * px
+                moved.append(disp(m))
+            total += np.linalg.norm(moved[0] - moved[1], axis=1) / 2.0
+    return float(total.mean())
+
+
+def stereo_grid_points(grid):
+    (x0, y0), nx, ny, step = grid
+    gx, gy = np.meshgrid(x0 + step * np.arange(nx), y0 + step * np.arange(ny))
+    return np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+
+
+def stereo_inputs(size=STEREO_SIZE, grid=STEREO_GRID, seed=11):
+    """Four 8-bit views (ref1, ref2, tar1, tar2) of ``size`` [H, W] through
+    the example's cameras, the view-1 POIs [N, 2] float32 on ``grid``,
+    their truth and the scene (a plate STEREO_PLATE_PX wider than the
+    grid).  Smaller sizes see the sensors' top-left corners."""
+    cams = [stereo_camera(*c) for c in STEREO_CAMS]
+    pts = stereo_grid_points(grid)
+    m = STEREO_PLATE_PX
+    plate = (pts[:, 0].min() - m, pts[:, 1].min() - m, pts[:, 0].max() + m,
+             pts[:, 1].max() + m)
+    scene = StereoScene(cams, size, plate, seed)
+    views = [scene.render(0), scene.render(1), scene.render(0, True),
+             scene.render(1, True)]
+    return views, pts, scene.truth(pts.astype(np.float64)), scene
+
+
+def stereo_calibrations(ot, device, offset=(0, 0)):
+    """The port's Calibration pair of the example's cameras, the principal
+    points moved by ``offset`` (x0, y0), the corner of a crop."""
+    out = []
+    for intr, extr in STEREO_CAMS:
+        i = dict(intr, cx=intr["cx"] - offset[0], cy=intr["cy"] - offset[1])
+        out.append(ot.Calibration(ot.CameraIntrinsics(**i),
+                                  ot.CameraExtrinsics(**extr), device=device))
+    return out
+
+
+# The crop of phases 10 and 11 [y0, x0, h, w] and its POIs (view-1 grid
+# points whose view-2 and moved matches stay inside the crop).
+STEREO_CROP = (400, 760, 288, 352)
+
+
+def stereo_crop(views, pts, step=1):
+    y0, x0, h, w = STEREO_CROP
+    crops = [np.ascontiguousarray(v[y0:y0 + h, x0:x0 + w]) for v in views]
+    inside = ((pts[:, 0] >= x0 + 60) & (pts[:, 0] < x0 + w - 30)
+              & (pts[:, 1] >= y0 + 90) & (pts[:, 1] < y0 + h - 30))
+    local = (pts[inside] - np.array([x0, y0], np.float32))[::step]
+    return crops, local, (x0, y0)
+
+
+def phase_stereo_cpu_agreement(torch, ot, views, pts):
+    """SIFT2D, FeatureAffine2D, EpipolarSearch, ICGN2D2 and reconstruct on
+    cuda and on cpu on a crop of the scene (the cameras' principal points
+    moved to the crop's corner).  Each module after the first starts from
+    the cpu's results on both devices."""
+    devices = card, host = ("cuda", "cpu")
+    crops, local, offset = stereo_crop(views, pts, step=2)
+    res = dict(crop=list(STEREO_CROP), pois=int(len(local)))
+    sifts = {}
+    for dev in devices:
+        s = ot.SIFT2D(device=dev)
+        s.set_images(crops[0], crops[2])
+        s.compute()
+        sifts[dev] = s
+    kp = {dev: [(st["image"], st["candidates"], st["keypoints"],
+                 st["instances"]) for st in sifts[dev].octave_stats]
+          for dev in devices}
+    sets = {dev: set(map(tuple, np.concatenate(
+        [sifts[dev].ref_matched_kp, sifts[dev].tar_matched_kp], 1).tolist()))
+        for dev in devices}
+    res.update(sift_octaves_equal=kp[card] == kp[host],
+               matches={dev: len(sets[dev]) for dev in devices},
+               matches_only_on={dev: len(sets[dev] - sets[o]) for dev, o in
+                                ((card, host), (host, card))})
+    mk = (sifts[host].ref_matched_kp, sifts[host].tar_matched_kp)
+    fa = {}
+    for dev in devices:
+        m = ot.FeatureAffine2D(16, 16, device=dev)
+        m.set_keypoint_pair(*mk)
+        fa[dev] = ot.table_to_numpy(m.compute(ot.new_table_2d(
+            local[:, 0], local[:, 1], device=dev)))
+    fa_codes = np.array_equal(fa[card]["r"][:, 2], fa[host]["r"][:, 2])
+    fa_dp = float(np.abs(fa[card]["p"] - fa[host]["p"]).max())
+    epi, icgn = {}, {}
+    for dev in devices:
+        cams = stereo_calibrations(ot, dev, offset)
+        e = ot.EpipolarSearch(*cams, device=dev)
+        e.set_parallax(STEREO_PARALLAX)
+        e.set_search(*STEREO_SEARCH)
+        e.create_icgn(STEREO_EPI_R, STEREO_EPI_R, 0.05, 10)
+        e.set_images(crops[0], crops[1])
+        e.prepare()
+        epi[dev] = ot.table_to_numpy(e.compute(ot.new_table_2d(
+            local[:, 0], local[:, 1], device=dev)))
+    e0 = epi[host]
+    for dev in devices:
+        m = ot.ICGN2D2(16, 16, 0.001, 10, device=dev)
+        m.set_images(crops[0], crops[1])
+        m.prepare()
+        icgn[dev] = ot.table_to_numpy(m.compute(ot.table_from_numpy(
+            e0["x"], e0["y"], e0["p"], e0["r"], e0["e"], e0["sr"],
+            device=dev)))
+    i0 = icgn[host]
+    v2 = np.stack([i0["x"] + i0["p"][:, 0], i0["y"] + i0["p"][:, 6]], -1)
+    rec = {}
+    for dev in devices:
+        c1, c2 = stereo_calibrations(ot, dev, offset)
+        h, w = crops[0].shape
+        c1.prepare(h, w)
+        c2.prepare(h, w)
+        sv = ot.Stereovision(c1, c2)
+        sv.prepare()
+        rec[dev] = sv.reconstruct(local, v2).cpu().numpy()
+
+    def agree(a, b, col_z, cols):
+        za, zb = a["r"][:, col_z], b["r"][:, col_z]
+        codes = np.array_equal(np.where(za < 0, za, 1), np.where(zb < 0, zb,
+                                                                   1))
+        both = (za > 0) & (zb > 0)
+        d = np.abs(a["p"][both][:, cols] - b["p"][both][:, cols])
+        return codes, float(d.max()) if both.any() else None, int(both.sum())
+
+    ec, ed, en = agree(epi[card], e0, 2, [0, 6])
+    ic, idd, inn = agree(icgn[card], i0, 2, [0, 6])
+    res.update(fa2d_codes_equal=fa_codes, fa2d_max_abs_dp=fa_dp,
+               fa2d_ok=int((fa[host]["r"][:, 2] == 0).sum()),
+               epipolar_codes_equal=ec, epipolar_max_abs_duv=ed,
+               epipolar_converged=en, icgn2d2_codes_equal=ic,
+               icgn2d2_max_abs_duv=idd, icgn2d2_converged=inn,
+               reconstruct_max_abs_mm=float(np.abs(rec[card]
+                                                   - rec[host]).max()))
+    log(json.dumps({"stereo_cuda_vs_cpu": res}))
+    n_match = max(res["matches"][host], 1)
+    check(res["sift_octaves_equal"], "SIFT2D octave counts differ")
+    check(max(res["matches_only_on"].values()) <= 0.01 * n_match,
+          f"SIFT2D matched sets differ: {res['matches_only_on']}")
+    check(fa_codes and fa_dp <= 1e-4, f"FeatureAffine2D differs: codes "
+          f"{fa_codes}, dp {fa_dp}")
+    check(res["fa2d_ok"] > 0, "FeatureAffine2D fitted no POI")
+    check(ec and en > 0 and ed <= 1e-3, f"EpipolarSearch differs: {ec} {ed}")
+    check(ic and inn > 0 and idd <= 1e-3, f"ICGN2D2 differs: {ic} {idd}")
+    check(res["reconstruct_max_abs_mm"] <= 1e-3,
+          f"reconstruct differs by {res['reconstruct_max_abs_mm']} mm")
+    return res
+
+
+def phase_stereo(torch, ot, views, pts, truth, scene, tmpdir):
+    """The stereo path at GT4's size: the example's four phases, the
+    triangulation, save_table_2ds and stereo strain, after a warm-up on the
+    crop; kernels 1 and 2 counted and timed per launch in the timed run."""
+    from opencorr_tpu_torch.examples import stereo_3d_dic_epipolar_sift as ex
+    from opencorr_tpu_torch.examples import stereo_strain
+    from opencorr_tpu_torch.ops import gather2d, lattice2d
+
+    imgs = [ot.Image2D.from_array(v) for v in views]
+    crops, local, offset = stereo_crop(views, pts)
+    warm, _ = ex.run(*[ot.Image2D.from_array(c) for c in crops], local,
+                     *stereo_calibrations(ot, "cuda", offset), device="cuda")
+    stereo_strain.run(warm, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = (gather2d.gather_windows_2d, lattice2d.lattice_eval_2d)
+    for fn in wrappers:
+        fn.launches = 0
+        fn.events = []
+    csv = os.path.join(tmpdir, "stereo.csv")
+    info = {}
+    out, times = ex.run(*imgs, pts, *stereo_calibrations(ot, "cuda"),
+                        out_path=csv, stats=info, device="cuda")
+    strained, strain_s = stereo_strain.run(out, device="cuda")
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    kernel_ms = {fn.__name__: event_ms(fn) for fn in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    for name, v in launches.items():
+        check(v > 0, f"the stereo path launched {name} no time")
+    stage_ms = {k: v * 1e3 for k, v in times.items()}
+    stage_ms["strain"] = strain_s * 1e3
+
+    t = ot.table_to_numpy(strained)
+    zn = t["r"][:, :3]
+    conv = zn > 0.9
+    pos = {}
+    for k, cols, c in (("r2", [3, 4], 0), ("t1", [5, 6], 1),
+                       ("t2", [7, 8], 2)):
+        pos[k] = float(np.abs(t["r"][conv[:, c]][:, cols]
+                              - truth[k][conv[:, c]]).mean())
+    ok = conv.all(1)
+    err3 = np.linalg.norm(t["p"][ok] - truth["disp"][ok], axis=1)
+    bound = displacement_bound(scene.cams, pts[ok], {
+        k: v[ok] for k, v in truth.items()})
+    reach = {name: [float(x) for x in (a.min(), a.max())] for name, a in (
+        ("r1r2", epipolar_reach(scene.cams, pts.astype(np.float64),
+                                truth["r2"])[0]),
+        ("t1t2", epipolar_reach(scene.cams, np.round(truth["t1"]),
+                                truth["t2"])[0]))}
+    with open(csv) as f:
+        n_lines = sum(1 for _ in f)
+    # a cap hit: more candidates than k_raw, or more refined keypoints or
+    # orientation instances than k_kp (the instances saturate at k_kp)
+    caps = [st for st in info["sift2d_octaves"]
+            if st["candidates"] > st["k_raw"] or st["keypoints"] > st["k_kp"]
+            or st["instances"] >= st["k_kp"]]
+    res = dict(
+        size=list(STEREO_SIZE), pois=int(len(pts)),
+        plane_point_mm=[float(x) for x in scene.x0], reach_px=reach,
+        converged_frac={p: float(conv[:, c].mean()) for c, p in enumerate(
+            ("r1r2", "r1t1", "r1t2"))},
+        mean_abs_position_px=pos, mean_disp_err_mm=float(err3.mean()),
+        disp_err_bound_mm=bound, matches=info["matches"],
+        fa2d_codes=info["feature_affine2d_codes"], cap_hits=caps,
+        codes={str(c): int((zn == c).sum()) for c in (-1.0, -2.0, -3.0,
+                                                       -4.0, -5.0)},
+        strain_computed=int((t["e"] != 0).any(1).sum()),
+        icgn_stats={k: info[k] for k in ("icgn2d1", "icgn2d2",
+                                         "epipolar_icgn")},
+        launches=launches, kernel_event_ms=kernel_ms, stage_ms=stage_ms,
+        peak_mem_mb=peak / 2**20, csv_lines=n_lines)
+    for st in info["sift2d_octaves"]:
+        log(json.dumps({"sift2d_octave": st}))
+    log(json.dumps({"stereo_path": res}))
+    # phase 2 checked kernel 1 at the epipolar shape this run launched
+    side = 2 * STEREO_EPI_R + 1
+    epi = {s for s in kernel_ms["gather_windows_2d"]["by_shape"]
+           if s.endswith(f"x{side}x{side}")}
+    want = {f"{epipolar_windows(ot)}x{side}x{side}"}
+    check(epi == want, f"epipolar gathers {sorted(epi)}, phase 2 checked "
+          f"{sorted(want)}")
+    check(n_lines == len(pts) + 1, f"stereo csv lines {n_lines}")
+    check(np.isfinite(t["p"][ok]).all(), "non-finite displacements")
+    for p, f in res["converged_frac"].items():
+        check(f >= 0.9, f"stereo {p} converged {f}")
+    for k, e in pos.items():
+        check(e < STEREO_TOL_PX, f"stereo {k} mean position error {e}")
+    check(res["mean_disp_err_mm"] < bound,
+          f"3D displacement error {res['mean_disp_err_mm']} >= {bound}")
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -1143,7 +1688,7 @@ def main() -> int:
         warm = warm @ warm * (1.0 / 4096)
     torch.cuda.synchronize()
     del warm
-    records = phase_kernels(torch, img, rng, reps=20)
+    records = phase_kernels(torch, ot, img, rng, reps=20)
     lattice_shape = records["lattice3d"][0]["shape"]  # one DVC chunk
     records["desc"] = phase_desc3d(torch, ot, rng, reps=10)
 
@@ -1181,9 +1726,22 @@ def main() -> int:
     # phase 8: the SIFT slice's modules on cuda against the cpu
     phase_sift_cpu_agreement(torch, ot)
 
-    # phase 9: the records
+    # phase 9: the stereo slice's modules on cuda against the cpu (a crop)
+    t0 = time.perf_counter()
+    views, spts, struth, scene = stereo_inputs()
+    log(json.dumps({"stereo_render_s": time.perf_counter() - t0}))
+    phase_stereo_cpu_agreement(torch, ot, views, spts)
+
+    # phase 10: the stereo path at GT4's size
+    with tempfile.TemporaryDirectory() as tmpdir:
+        stereo_res, stereo_launches = phase_stereo(torch, ot, views, spts,
+                                                   struth, scene, tmpdir)
+    by_path["stereo"] = dict(stereo_launches)
+
+    # phase 11: the records
     path_ms = {"dvc": dvc_res["kernel_event_ms"],
-               "sift": sift_res["kernel_event_ms"]}
+               "sift": sift_res["kernel_event_ms"],
+               "stereo": stereo_res["kernel_event_ms"]}
     def summary(name, route, source, replaces, recs, ref_shape, **pick):
         r = next(x for x in recs if x["shape"] == ref_shape
                  and all(x.get(k) == v for k, v in pick.items()))
@@ -1220,6 +1778,7 @@ def main() -> int:
     log(json.dumps({"stage_ms": main_res["stage_ms"],
                     "dvc_stage_ms": dvc_res["stage_ms"],
                     "sift_stage_ms": sift_res["stage_ms"],
+                    "stereo_stage_ms": stereo_res["stage_ms"],
                     "total_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

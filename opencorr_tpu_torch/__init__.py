@@ -7,38 +7,52 @@ had Pallas kernels.  Modules and top-level functions run on ``cuda`` unless
 the caller passes ``device="cpu"``; without a CUDA device they raise.
 
 Ported so far: the flagship 2D path FFTCC2D -> ICGN2D1 -> Strain, the
-DVC path FFTCC3D -> ICGN3D1 -> Strain, and the feature-seeded DVC path
-SIFT3D -> FeatureAffine3D -> ICGN3D1.
+DVC path FFTCC3D -> ICGN3D1 -> Strain, the feature-seeded DVC path
+SIFT3D -> FeatureAffine3D -> ICGN3D1, and stereo 3D-DIC (EpipolarSearch ->
+ICGN2D2, SIFT2D -> FeatureAffine2D -> ICGN2D1, triangulation, stereo
+strain; ``examples/stereo_3d_dic_epipolar_sift.py``).
 """
 
 from .utils import precision as _precision  # noqa: F401  (pins full f32)
 from .data.image import Image2D, Image3D
 from .data.poi import (
     POITable2D,
+    POITable2DS,
     POITable3D,
     new_table_2d,
+    new_table_2ds,
     new_table_3d,
     poi_grid_2d,
     poi_grid_3d,
     table_from_numpy,
+    table_from_numpy_2ds,
     table_from_numpy_3d,
     table_to_numpy,
 )
+from .io.calibration_io import load_calibration, save_calibration
 from .io.table import (
     load_matrix_bin_3d,
     load_table_2d,
+    load_table_2ds,
     load_table_3d,
     save_deformation_table_2d,
     save_map_2d,
+    save_map_2ds,
     save_map_3d,
     save_matrix_bin_3d,
     save_table_2d,
+    save_table_2ds,
     save_table_3d,
 )
-from .models.feature_affine import FeatureAffine3D, RansacConfig
+from .models.calibration import Calibration, CameraExtrinsics, CameraIntrinsics
+from .models.epipolar import EpipolarSearch
+from .models.feature_affine import FeatureAffine2D, FeatureAffine3D, \
+    RansacConfig
 from .models.fftcc import FFTCC2D, FFTCC3D
 from .models.icgn import ICGN2D1, ICGN2D2, ICGN3D1
+from .models.sift2d import SIFT2D, Sift2dConfig
 from .models.sift3d import SIFT3D, Sift3dConfig
+from .models.stereovision import Stereovision
 from .models.strain import Strain
 from .utils.precision import resolve_device
 
@@ -46,32 +60,48 @@ __all__ = [
     "Image2D",
     "Image3D",
     "POITable2D",
+    "POITable2DS",
     "POITable3D",
     "new_table_2d",
+    "new_table_2ds",
     "new_table_3d",
     "poi_grid_2d",
     "poi_grid_3d",
     "table_from_numpy",
+    "table_from_numpy_2ds",
     "table_from_numpy_3d",
     "table_to_numpy",
+    "load_calibration",
+    "save_calibration",
     "load_matrix_bin_3d",
     "load_table_2d",
+    "load_table_2ds",
     "load_table_3d",
     "save_deformation_table_2d",
     "save_map_2d",
+    "save_map_2ds",
     "save_map_3d",
     "save_matrix_bin_3d",
     "save_table_2d",
+    "save_table_2ds",
     "save_table_3d",
+    "Calibration",
+    "CameraExtrinsics",
+    "CameraIntrinsics",
+    "EpipolarSearch",
     "FFTCC2D",
     "FFTCC3D",
     "ICGN2D1",
     "ICGN2D2",
     "ICGN3D1",
+    "FeatureAffine2D",
     "FeatureAffine3D",
     "RansacConfig",
+    "SIFT2D",
+    "Sift2dConfig",
     "SIFT3D",
     "Sift3dConfig",
+    "Stereovision",
     "Strain",
     "resolve_device",
 ]

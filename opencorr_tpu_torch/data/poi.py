@@ -9,6 +9,9 @@ files read and write unmodified:
 * 3D deformation ``p``: u ux uy uz v vx vy vz w wx wy wz
 * 3D result ``r``: u0 v0 w0 zncc iteration convergence feature
 * 3D strain ``e``: exx eyy ezz exy eyz ezx
+* stereo (2DS) result ``r``: r1r2_zncc r1t1_zncc r1t2_zncc r2_x r2_y t1_x
+  t1_y t2_x t2_y (oc_poi.h:57); ``p`` is the 3D displacement (u, v, w) and
+  ``e`` the 3D strain
 
 Negative ZNCC encodes the reference failure taxonomy (oc_dic.h:28-34):
 0 reset, -1 insufficient features, -2 RANSAC inconsistent, -3 out of bounds
@@ -82,7 +85,7 @@ class POITable2D:
 
     def map(self, fn) -> "POITable2D":
         """Apply ``fn`` to every per-POI tensor (x and y included)."""
-        return POITable2D(*(fn(getattr(self, f)) for f in self.FIELDS))
+        return type(self)(*(fn(getattr(self, f)) for f in self.FIELDS))
 
     def xy_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
         """Host float32 copies of x and y, read back once per table."""
@@ -152,17 +155,54 @@ class POITable3D:
         return self.host_xyz
 
 
-def new_table_2d(x, y, device: DeviceLike = None) -> POITable2D:
-    """Fresh POI table with all data zeroed (``POI2D::clear``, oc_poi.h:128)."""
+@dataclasses.dataclass
+class POITable2DS:
+    """Dense batch of stereo DIC POIs (mirrors ``POI2DS``, oc_poi.h:140)."""
+
+    FIELDS = ("x", "y", "p", "r", "ref_coor", "tar_coor", "e", "sr")
+    WIDTHS = (("p", 3), ("r", 9), ("ref_coor", 3), ("tar_coor", 3),
+              ("e", 6), ("sr", 2))
+
+    x: torch.Tensor  # [N] f32
+    y: torch.Tensor  # [N] f32
+    p: torch.Tensor  # [N, 3] f32 displacement (u, v, w)
+    r: torch.Tensor  # [N, 9] f32 result (3 znccs, 2D coords in 3 views)
+    ref_coor: torch.Tensor  # [N, 3] f32 reconstructed reference point
+    tar_coor: torch.Tensor  # [N, 3] f32 reconstructed target point
+    e: torch.Tensor  # [N, 6] f32 strain
+    sr: torch.Tensor  # [N, 2] f32 subset radius (x, y)
+    # host copy of (x, y), as POITable2D.host_xy
+    host_xy: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    # the same table mechanics as POITable2D's
+    n = POITable2D.n
+    device = POITable2D.device
+    replace = POITable2D.replace
+    map = POITable2D.map
+    xy_numpy = coords_numpy = POITable2D.xy_numpy
+
+
+def _new_table(cls, x, y, device: DeviceLike):
+    """A 2D or stereo table at view-1 points (x, y), all data zeroed."""
     dev = resolve_device(device)
     xh = np.asarray(x, np.float32).reshape(-1)
     yh = np.asarray(y, np.float32).reshape(-1)
     n = xh.shape[0]
-    z = lambda k: torch.zeros((n, k), dtype=torch.float32, device=dev)
-    return POITable2D(
-        x=torch.from_numpy(xh.copy()).to(dev),
-        y=torch.from_numpy(yh.copy()).to(dev),
-        p=z(12), r=z(6), e=z(3), sr=z(2), host_xy=(xh, yh))
+    return cls(torch.from_numpy(xh.copy()).to(dev),
+               torch.from_numpy(yh.copy()).to(dev),
+               *(torch.zeros((n, k), dtype=torch.float32, device=dev)
+                 for _, k in cls.WIDTHS), host_xy=(xh, yh))
+
+
+def new_table_2d(x, y, device: DeviceLike = None) -> POITable2D:
+    """Fresh POI table with all data zeroed (``POI2D::clear``, oc_poi.h:128)."""
+    return _new_table(POITable2D, x, y, device)
+
+
+def new_table_2ds(x, y, device: DeviceLike = None) -> POITable2DS:
+    """Fresh stereo POI table with all data zeroed."""
+    return _new_table(POITable2DS, x, y, device)
 
 
 def poi_grid_2d(upper_left: Tuple[float, float], number_x: int, number_y: int,
@@ -227,7 +267,14 @@ def table_from_numpy_3d(x, y, z, p, r, e, sr, device: DeviceLike = None
     return _from_numpy(POITable3D, (x, y, z), (p, r, e, sr), device)
 
 
+def table_from_numpy_2ds(x, y, p, r, ref_coor, tar_coor, e, sr,
+                         device: DeviceLike = None) -> POITable2DS:
+    """The stereo counterpart of :func:`table_from_numpy`."""
+    return _from_numpy(POITable2DS, (x, y), (p, r, ref_coor, tar_coor, e, sr),
+                       device)
+
+
 def table_to_numpy(t) -> dict:
-    """Host float32 copies of every field of a 2D or 3D table, keyed by
-    field name."""
+    """Host float32 copies of every field of a 2D, 2DS or 3D table, keyed
+    by field name."""
     return {f: getattr(t, f).cpu().numpy() for f in t.FIELDS}

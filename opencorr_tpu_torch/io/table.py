@@ -8,6 +8,8 @@ Schemas mirror ``oc_io.cpp`` so the reference's files load unmodified:
 * 2D deformation table (``saveDeformationTable2D``, oc_io.cpp:375-421);
 * 2D value maps (``saveMap2D``, oc_io.cpp:423-504): an image-sized grid with
   one selected variable rasterized at each POI position;
+* stereo result table (``saveTable2DS``, oc_io.cpp:588-669) and value maps
+  (``saveMap2DS``, oc_io.cpp:671-826);
 * DVC result table (``saveTable3D``, oc_io.cpp:1004-1089), 3D value maps
   (``saveMap3D``) and the binary matrix checkpoint (``saveMatrixBin``).
 
@@ -94,16 +96,74 @@ _MAP_VARS_2D = {
 }
 
 
-def save_map_2d(path: str, table: poi_mod.POITable2D, variable: str,
-                height: int, width: int, delimiter: str = ",") -> None:
-    """Rasterize one variable onto an image-sized grid (oc_io.cpp:423-504)."""
-    vals = _MAP_VARS_2D[variable](table)
+def _save_map(path, table, vals, height, width, delimiter) -> None:
+    """Write ``vals`` rasterized at each POI's (x, y) on an image-sized
+    grid."""
     out = np.zeros((height, width), np.float32)
     xs, ys = table.xy_numpy()
     out[ys.astype(np.int32), xs.astype(np.int32)] = vals
     with open(path, "w") as f:
         for row in out:
             f.write(_fmt_row(row, delimiter) + "\n")
+
+
+def save_map_2d(path: str, table: poi_mod.POITable2D, variable: str,
+                height: int, width: int, delimiter: str = ",") -> None:
+    """Rasterize one variable onto an image-sized grid (oc_io.cpp:423-504)."""
+    _save_map(path, table, _MAP_VARS_2D[variable](table), height, width,
+              delimiter)
+
+
+def save_table_2ds(path: str, table: poi_mod.POITable2DS,
+                   delimiter: str = ",") -> None:
+    """Stereo result table (``saveTable2DS``, oc_io.cpp:588-669), in the
+    column layout of the reference's GT4-0273_0_epipolar_sift_r16.csv."""
+    cols = ["x", "y", "u", "v", "w", "r1r2 ZNCC", "r1t1 ZNCC", "r1t2 ZNCC",
+            "r2_x", "r2_y", "t1_x", "t1_y", "t2_x", "t2_y",
+            "ref_x", "ref_y", "ref_z", "tar_x", "tar_y", "tar_z",
+            "exx", "eyy", "ezz", "exy", "eyz", "ezx"]
+    data = np.column_stack(
+        [_np(table.x), _np(table.y), _np(table.p), _np(table.r),
+         _np(table.ref_coor), _np(table.tar_coor), _np(table.e)])
+    _write_csv(path, cols, data, delimiter)
+
+
+def load_table_2ds(path: str, delimiter: str = ",",
+                   device: DeviceLike = None) -> poi_mod.POITable2DS:
+    """Parse a stereo result table (``loadTable2DS``, oc_io.cpp:506-586);
+    tolerates files without the strain columns."""
+    raw = _read_csv(path, delimiter)
+    n = raw.shape[0]
+    e = np.zeros((n, 6), np.float32)
+    if raw.shape[1] >= 26:
+        e[:] = raw[:, 20:26]
+    return poi_mod.table_from_numpy_2ds(
+        raw[:, 0], raw[:, 1], raw[:, 2:5], raw[:, 5:14], raw[:, 14:17],
+        raw[:, 17:20], e, np.zeros((n, 2), np.float32), device)
+
+
+_MAP_VARS_2DS = {
+    "u": lambda t: _np(t.p)[:, 0],
+    "v": lambda t: _np(t.p)[:, 1],
+    "w": lambda t: _np(t.p)[:, 2],
+    "zncc_r1r2": lambda t: _np(t.r)[:, 0],
+    "zncc_r1t1": lambda t: _np(t.r)[:, 1],
+    "zncc_r1t2": lambda t: _np(t.r)[:, 2],
+    "exx": lambda t: _np(t.e)[:, 0],
+    "eyy": lambda t: _np(t.e)[:, 1],
+    "ezz": lambda t: _np(t.e)[:, 2],
+    "exy": lambda t: _np(t.e)[:, 3],
+    "eyz": lambda t: _np(t.e)[:, 4],
+    "ezx": lambda t: _np(t.e)[:, 5],
+}
+
+
+def save_map_2ds(path: str, table: poi_mod.POITable2DS, variable: str,
+                 height: int, width: int, delimiter: str = ",") -> None:
+    """Stereo value map (``saveMap2DS``, oc_io.cpp:671-826): one variable
+    rasterized at each POI's view-1 position."""
+    _save_map(path, table, _MAP_VARS_2DS[variable](table), height, width,
+              delimiter)
 
 
 def save_table_3d(path: str, table: poi_mod.POITable3D,

@@ -1,5 +1,5 @@
-"""FeatureAffine3D (reference API: ``FeatureAffine3D``,
-oc_feature_affine.h:82-118): a per-POI first-order deformation guess from
+"""FeatureAffine2D and FeatureAffine3D (reference API:
+oc_feature_affine.h:37-118): a per-POI first-order deformation guess from
 matched keypoints, by RANSAC over the keypoints near each POI."""
 
 from __future__ import annotations
@@ -15,6 +15,20 @@ from ..data import poi as poi_mod
 from ..ops import feature_affine as fa_ops
 from ..utils.precision import DeviceLike, resolve_device
 from . import base
+
+
+def _merge_2d(t: poi_mod.POITable2D, out) -> poi_mod.POITable2D:
+    """As :func:`_merge_3d` for a 2D table: u ux uy v vx vy go to their
+    columns of the 12-dof rows."""
+    p6, zncc, it, feat, ok = out
+    p = t.p.clone()
+    for src, dst in enumerate((0, 1, 2, 6, 7, 8)):
+        p[:, dst] = torch.where(ok, p6[:, src], t.p[:, dst])
+    r = t.r.clone()
+    r[:, poi_mod.R_ZNCC] = zncc
+    r[:, poi_mod.R_ITER] = torch.where(ok, it, t.r[:, poi_mod.R_ITER])
+    r[:, poi_mod.R_FEAT] = torch.where(ok, feat, t.r[:, poi_mod.R_FEAT])
+    return t.replace(p=p, r=r)
 
 
 def _merge_3d(t: poi_mod.POITable3D, out) -> poi_mod.POITable3D:
@@ -97,11 +111,9 @@ class RansacConfig:
     error_threshold: float
 
 
-class FeatureAffine3D:
-    """Per-POI 12-parameter guess from matched keypoints
-    (oc_feature_affine.cpp:357-560).  Defaults per the reference's
-    constructor: search radius |(rx, ry, rz)|, at least 16 neighbours,
-    32 trials of 4 samples, 3.2 voxel error threshold.
+class _FeatureAffine:
+    """What FeatureAffine2D and FeatureAffine3D share: the keypoint pair,
+    the host k-d tree candidates and the chunked RANSAC.
 
     The neighbour search is the host k-d tree (``neighbor_backend="host"``,
     scipy's cKDTree, as the reference's nanoflann); the JAX package's
@@ -110,20 +122,22 @@ class FeatureAffine3D:
     gets the same draws on every device.  ``chunk_size`` POIs run at
     once."""
 
-    def __init__(self, radius_x: int, radius_y: int, radius_z: int,
-                 k_cap: int = 128, seed: int = 0,
-                 chunk_size: Optional[int] = 131072,
-                 neighbor_backend: str = "host", device: DeviceLike = None):
+    dim = 0
+    table_type = None
+
+    def __init__(self, radii, neighbor_min: int, ransac: "RansacConfig",
+                 k_cap: int, seed: int, chunk_size: Optional[int],
+                 neighbor_backend: str, device: DeviceLike):
         if neighbor_backend != "host":
             raise NotImplementedError(
-                f"FeatureAffine3D: neighbor_backend={neighbor_backend!r} is "
-                "not ported; the port searches with a host k-d tree ('host')")
+                f"{type(self).__name__}: neighbor_backend="
+                f"{neighbor_backend!r} is not ported; the port searches with "
+                "a host k-d tree ('host')")
         self.device = resolve_device(device)
         self.neighbor_search_radius = float(
-            np.sqrt(radius_x ** 2 + radius_y ** 2 + radius_z ** 2))
-        self.neighbor_number_min = 16
-        self.ransac = RansacConfig(trial_number=32, sample_number=4,
-                                   error_threshold=3.2)
+            np.sqrt(sum(r ** 2 for r in radii)))
+        self.neighbor_number_min = int(neighbor_min)
+        self.ransac = ransac
         self.k_cap = int(k_cap)
         self.seed = int(seed)
         self.chunk_size = chunk_size
@@ -141,15 +155,15 @@ class FeatureAffine3D:
         self.ransac = cfg
 
     def set_keypoint_pair(self, ref_kp, tar_kp):
-        self.ref_kp = np.asarray(ref_kp, np.float32).reshape(-1, 3)
-        self.tar_kp = np.asarray(tar_kp, np.float32).reshape(-1, 3)
+        self.ref_kp = np.asarray(ref_kp, np.float32).reshape(-1, self.dim)
+        self.tar_kp = np.asarray(tar_kp, np.float32).reshape(-1, self.dim)
         self._tree = None
         self._cand.clear()
 
     def prepare(self, table=None, points=None):
         """Build the keypoint k-d tree (the reference's prepare() builds its
         nanoflann index, oc_feature_affine.cpp:112-116); with ``table``,
-        also its candidate tables (``points`` [N, 3] spares reading the
+        also its candidate tables (``points`` [N, D] spares reading the
         coordinates back)."""
         if self.ref_kp is not None:
             from scipy.spatial import cKDTree
@@ -166,7 +180,7 @@ class FeatureAffine3D:
 
         def build():
             if points is not None:
-                q = np.asarray(points, np.float64).reshape(-1, 3)
+                q = np.asarray(points, np.float64).reshape(-1, self.dim)
             else:
                 q = np.stack(table.coords_numpy(), -1).astype(np.float64)
             idx, cand, enough = _host_candidates(
@@ -177,15 +191,19 @@ class FeatureAffine3D:
 
         return self._cand.get(table.x, params, build)
 
-    def compute(self, table: poi_mod.POITable3D,
-                draws: Optional[torch.Tensor] = None) -> poi_mod.POITable3D:
-        """The guess for every POI of ``table``.  ``draws`` [4, N, trials]
+    def _ransac(self, ref_kp, tar_kp, t, idx, cand, enough, draws, trials,
+                samples):  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def compute(self, table, draws: Optional[torch.Tensor] = None):
+        """The guess for every POI of ``table``.  ``draws`` [D+1, N, trials]
         integer RANSAC draws in [0, 2^30) replace the module's own
-        (``ops.feature_affine.ransac_draws(seed, N, trials)``)."""
+        (``ops.feature_affine.ransac_draws(seed, N, trials, D+1)``)."""
         if self.ref_kp is None:
             raise RuntimeError("call set_keypoint_pair() first")
-        if not isinstance(table, poi_mod.POITable3D):
-            raise TypeError(f"FeatureAffine3D takes POITable3D, got "
+        if not isinstance(table, self.table_type):
+            raise TypeError(f"{type(self).__name__} takes "
+                            f"{self.table_type.__name__}, got "
                             f"{type(table).__name__}")
         if table.device != self.device:
             raise ValueError(f"POI table on {table.device}, module on "
@@ -194,21 +212,84 @@ class FeatureAffine3D:
             self.prepare()
         tr, sm = self.ransac.trial_number, self.ransac.sample_number
         idx, cand, enough = self._candidates(table)
+        shape = (self.dim + 1, table.n, tr)
         if draws is None:
-            draws = fa_ops.ransac_draws(self.seed, table.n, tr)
-        if tuple(draws.shape) != (4, table.n, tr):
-            raise ValueError(f"draws {tuple(draws.shape)}, expected "
-                             f"{(4, table.n, tr)}")
+            draws = fa_ops.ransac_draws(self.seed, table.n, tr, self.dim + 1)
+        if tuple(draws.shape) != shape:
+            raise ValueError(f"draws {tuple(draws.shape)}, expected {shape}")
         draws = draws.to(device=self.device, dtype=torch.int64)
         ref_kp = torch.from_numpy(self.ref_kp).to(self.device)
         tar_kp = torch.from_numpy(self.tar_kp).to(self.device)
-        nmin, thr = self.neighbor_number_min, self.ransac.error_threshold
 
         def run(t, idx_c, cand_c, en_c, draws_c):
-            out = fa_ops.feature_affine_3d_idx(
-                ref_kp, tar_kp, t.x, t.y, t.z, idx_c, cand_c, en_c, nmin,
-                thr, draws_c.transpose(0, 1), trials=tr, samples=sm)
-            return _merge_3d(t, out)
+            return self._ransac(ref_kp, tar_kp, t, idx_c, cand_c, en_c,
+                                draws_c.transpose(0, 1), tr, sm)
 
         return base.chunked(run, table, self.chunk_size, idx, cand, enough,
                             draws.transpose(0, 1))
+
+
+class FeatureAffine2D(_FeatureAffine):
+    """Per-POI 6-parameter guess from matched keypoints
+    (oc_feature_affine.cpp:118-342).  Defaults per the reference's
+    constructor (:34-47): search radius |(rx, ry)|, at least 7 neighbours,
+    20 trials of 3 samples, 1.5 px error threshold.  Self-adaptive subsets
+    (:128-179) are not ported yet."""
+
+    dim = 2
+    table_type = poi_mod.POITable2D
+
+    def __init__(self, radius_x: int, radius_y: int, k_cap: int = 128,
+                 seed: int = 0, chunk_size: Optional[int] = 16384,
+                 neighbor_backend: str = "host", device: DeviceLike = None):
+        super().__init__((radius_x, radius_y), 7,
+                         RansacConfig(trial_number=20, sample_number=3,
+                                      error_threshold=1.5),
+                         k_cap, seed, chunk_size, neighbor_backend, device)
+        self.subset_feature_min = 14  # self-adaptive mode (:46)
+        self.subset_radius_min = 10  # (:47)
+
+    def set_subset_adjustment(self, feature_min: int, radius_min: int):
+        self.subset_feature_min = int(feature_min)
+        self.subset_radius_min = int(radius_min)
+
+    def set_self_adaptive(self, flag: bool) -> None:
+        if flag:
+            raise NotImplementedError(
+                "FeatureAffine2D: self-adaptive subsets are not ported yet "
+                "(a later slice)")
+
+    def _ransac(self, ref_kp, tar_kp, t, idx, cand, enough, draws, trials,
+                samples):
+        out = fa_ops.feature_affine_2d_idx(
+            ref_kp, tar_kp, t.x, t.y, idx, cand, enough,
+            self.neighbor_number_min, self.ransac.error_threshold, draws,
+            trials=trials, samples=samples)
+        return _merge_2d(t, out)
+
+
+class FeatureAffine3D(_FeatureAffine):
+    """Per-POI 12-parameter guess from matched keypoints
+    (oc_feature_affine.cpp:357-560).  Defaults per the reference's
+    constructor: search radius |(rx, ry, rz)|, at least 16 neighbours,
+    32 trials of 4 samples, 3.2 voxel error threshold."""
+
+    dim = 3
+    table_type = poi_mod.POITable3D
+
+    def __init__(self, radius_x: int, radius_y: int, radius_z: int,
+                 k_cap: int = 128, seed: int = 0,
+                 chunk_size: Optional[int] = 131072,
+                 neighbor_backend: str = "host", device: DeviceLike = None):
+        super().__init__((radius_x, radius_y, radius_z), 16,
+                         RansacConfig(trial_number=32, sample_number=4,
+                                      error_threshold=3.2),
+                         k_cap, seed, chunk_size, neighbor_backend, device)
+
+    def _ransac(self, ref_kp, tar_kp, t, idx, cand, enough, draws, trials,
+                samples):
+        out = fa_ops.feature_affine_3d_idx(
+            ref_kp, tar_kp, t.x, t.y, t.z, idx, cand, enough,
+            self.neighbor_number_min, self.ransac.error_threshold, draws,
+            trials=trials, samples=samples)
+        return _merge_3d(t, out)

@@ -32,6 +32,8 @@ class ICGN2D1(base.Module2D):
     windows of half-extent r+margin and the lattice kernel; a POI whose GN
     iterate drifts more than margin-2 px past its seed fails with -3.
     ``None`` evaluates every sample through the global per-pixel LUT.
+    ``compute(table, center_offset)`` takes the stereo overload's [N, 2]
+    target-center offsets (oc_icgn.cpp:353-560), chunked with the table.
     ``stats`` counts the eval branches and loop phases of every compute."""
 
     order = 1
@@ -71,10 +73,6 @@ class ICGN2D1(base.Module2D):
     def compute(self, table: poi_mod.POITable2D,
                 center_offset: Optional[torch.Tensor] = None
                 ) -> poi_mod.POITable2D:
-        if center_offset is not None:
-            raise NotImplementedError(
-                "ICGN2D1: center offsets (the stereo overload) are not "
-                "ported yet (a later slice)")
         if self._lut is None:
             raise RuntimeError("call prepare() before compute()")
         self._check_table(table)
@@ -86,12 +84,13 @@ class ICGN2D1(base.Module2D):
                 margin = None  # image smaller than the window: global path
         chunk = base.budget_chunk(self.chunk_size, rx, ry)
 
-        def run(t):
+        def run(t, *offs):
             p_out, u0, v0, zncc, it, dpn, computed = icgn_ops.icgn2d(
                 self._gx, self._gy, self.ref_img, self._lut, t.x, t.y, t.p,
                 t.r[:, poi_mod.R_ZNCC], self.conv_criterion,
                 self.stop_condition, self.tar_img, order=self.order, rx=rx,
-                ry=ry, window_margin=margin, stats=self.stats)
+                ry=ry, center_offset=offs[0] if offs else None,
+                window_margin=margin, stats=self.stats)
             r = t.r.clone()
             r[:, poi_mod.R_ZNCC] = zncc
             for col, val in ((poi_mod.R_U0, u0), (poi_mod.R_V0, v0),
@@ -102,7 +101,14 @@ class ICGN2D1(base.Module2D):
             sr[:, 1] = torch.where(computed, float(ry), t.sr[:, 1])
             return t.replace(p=p_out, r=r, sr=sr)
 
-        return base.chunked(run, table, chunk)
+        if center_offset is None:
+            return base.chunked(run, table, chunk)
+        offs = torch.as_tensor(center_offset, dtype=torch.float32).to(
+            self.device)
+        if tuple(offs.shape) != (table.n, 2):
+            raise ValueError(f"center_offset {tuple(offs.shape)}, expected "
+                             f"{(table.n, 2)}")
+        return base.chunked(run, table, chunk, offs)
 
 
 class ICGN3D1(base.Module3D):
@@ -213,11 +219,7 @@ class ICGN3D1(base.Module3D):
 
 
 class ICGN2D2(ICGN2D1):
-    """Second-order IC-GN (oc_icgn.cpp:685-908): not ported yet."""
+    """Second-order IC-GN (oc_icgn.cpp:685-908): the 12-dof quadratic warp,
+    otherwise as :class:`ICGN2D1`."""
 
     order = 2
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ICGN2D2 is not ported yet: second-order IC-GN comes in a later "
-            "slice of the port")

@@ -1,0 +1,144 @@
+"""2D SIFT feature extraction and matching (reference API: ``SIFT2D``,
+oc_sift.h:39).
+
+The reference wraps OpenCV's CPU SIFT and matches with FLANN's approximate
+2-NN and Lowe's ratio test (oc_sift.cpp:60-130).  Here detection and
+description run on the device (ops/sift2d.py, the JAX package's re-
+implementation of OpenCV's SIFT), and matching is one distance matmul with
+an exact top-2.  ``compute`` reads the matched keypoints back to the host
+once.  ``backend="opencv"`` (the JAX package's host cross-check) is not
+ported: OpenCV may be absent where the port runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..ops import sift2d as sift_ops
+from ..utils.precision import DeviceLike, resolve_device
+from . import base
+
+
+@dataclasses.dataclass
+class Sift2dConfig:
+    """Defaults per oc_sift.cpp:22-30 (OpenCV defaults)."""
+
+    n_features: int = 0
+    n_octave_layers: int = 3
+    contrast_threshold: float = 0.04
+    edge_threshold: float = 10.0
+    sigma: float = 1.6
+
+
+# descriptor counts of the retain-best path are padded to a multiple of this
+_PAD = 2048
+
+
+class SIFT2D:
+    """``octave_stats`` lists, per image and octave, the candidate count
+    beside its cap ``k_raw`` and the refined keypoints and orientation
+    instances beside ``k_kp`` (a cap hit changes which keypoints exist)."""
+
+    def __init__(self, backend: Optional[str] = None,
+                 device: DeviceLike = None):
+        if backend not in (None, "device"):
+            raise NotImplementedError(
+                f"SIFT2D: backend={backend!r} is not ported; the port "
+                "detects on its device")
+        self.device = resolve_device(device)
+        self.sift_config = Sift2dConfig()
+        self.matching_ratio = 0.8  # oc_sift.cpp:29
+        self.ref_img: Optional[torch.Tensor] = None
+        self.tar_img: Optional[torch.Tensor] = None
+        self.ref_matched_kp: Optional[np.ndarray] = None  # [K, 2] (x, y)
+        self.tar_matched_kp: Optional[np.ndarray] = None
+        self.octave_stats: List[dict] = []
+
+    def set_sift_config(self, config: Sift2dConfig) -> None:
+        self.sift_config = config
+
+    def set_matching(self, ratio: float) -> None:
+        self.matching_ratio = float(ratio)
+
+    def set_images(self, ref_img, tar_img) -> None:
+        self.ref_img = base.upload(ref_img, self.device)
+        self.tar_img = base.upload(tar_img, self.device)
+
+    def prepare(self) -> None:
+        pass
+
+    def _detect(self, img, which: str):
+        cfg = self.sift_config
+        res, counts = sift_ops.detect_and_compute(
+            img, n_octave_layers=cfg.n_octave_layers,
+            contrast_threshold=cfg.contrast_threshold,
+            edge_threshold=cfg.edge_threshold, sigma=cfg.sigma)
+        self.octave_stats += [dict(image=which, **c) for c in counts]
+        return res
+
+    def compute_device(self):
+        """Detection, compaction and exact matching on the device, with no
+        transfer to the host: (keep [K], idx [K], rx, ry, tx, ty)."""
+        def compact(res):
+            k_total = min(sum(r[0].shape[0] for r in res), 32768)
+            k_total = -(-k_total // 2048) * 2048
+            return sift_ops.compact_octaves(res, k_total)
+
+        rx, ry, rdesc, rok = compact(self._detect(self.ref_img, "ref"))
+        tx, ty, tdesc, tok = compact(self._detect(self.tar_img, "tar"))
+        keep, idx = sift_ops.match_device(rdesc, rok, tdesc, tok,
+                                          self.matching_ratio)
+        return keep, idx, rx, ry, tx, ty
+
+    def compute(self) -> None:
+        self.octave_stats = []
+        cfg = self.sift_config
+        if cfg.n_features > 0:
+            # retainBest sorts responses on the host
+            rp, rd, _, _, rr = sift_ops.gather_keypoints(
+                self._detect(self.ref_img, "ref"))
+            tp, td, _, _, tr = sift_ops.gather_keypoints(
+                self._detect(self.tar_img, "tar"))
+            rp, rd = _retain_best(rp, rd, rr, cfg.n_features)
+            tp, td = _retain_best(tp, td, tr, cfg.n_features)
+            keep, idx = self._match_host(rd, td)
+            self.ref_matched_kp = rp[keep]
+            self.tar_matched_kp = tp[idx[keep]]
+            return
+        keep, idx, rx, ry, tx, ty = self.compute_device()
+        keep = keep.cpu().numpy()
+        idx = idx.cpu().numpy()
+        rxy = torch.stack([rx, ry], -1).cpu().numpy()
+        txy = torch.stack([tx, ty], -1).cpu().numpy()
+        self.ref_matched_kp = rxy[keep]
+        self.tar_matched_kp = txy[idx[keep]]
+
+    def _match_host(self, ref_desc, tar_desc):
+        """Exact matching of host descriptor arrays, padded to a multiple
+        of ``_PAD`` rows."""
+        n_ref, n_tar = len(ref_desc), len(tar_desc)
+        pad = lambda a, n: torch.from_numpy(np.pad(
+            np.asarray(a, np.float32), ((0, -n % _PAD), (0, 0)))).to(
+                self.device)
+        r, t = pad(ref_desc, n_ref), pad(tar_desc, n_tar)
+        r_ok = torch.arange(r.shape[0], device=self.device) < n_ref
+        t_ok = torch.arange(t.shape[0], device=self.device) < n_tar
+        keep, idx = sift_ops.match_device(r, r_ok, t, t_ok,
+                                          self.matching_ratio)
+        return keep.cpu().numpy()[:n_ref], idx.cpu().numpy()[:n_ref]
+
+    def clear(self) -> None:
+        self.ref_matched_kp = None
+        self.tar_matched_kp = None
+
+
+def _retain_best(pts, desc, resp, n):
+    """cv::KeyPointsFilter::retainBest: keep the n strongest responses."""
+    if len(pts) <= n:
+        return pts, desc
+    order = np.argsort(-resp, kind="stable")[:n]
+    return pts[order], desc[order]

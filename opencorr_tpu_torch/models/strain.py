@@ -1,5 +1,5 @@
-"""Strain module (reference API: ``Strain``, oc_strain.h:32), 2D and 3D
-tables."""
+"""Strain module (reference API: ``Strain``, oc_strain.h:32), 2D, stereo
+(2DS) and 3D tables."""
 
 from __future__ import annotations
 
@@ -128,16 +128,19 @@ class Strain:
         return data
 
     def compute(self, table):
-        """Strain of a 2D (exx, eyy, exy) or 3D (exx, eyy, ezz, exy, eyz,
-        ezx) table."""
-        if not isinstance(table, (poi_mod.POITable2D, poi_mod.POITable3D)):
-            raise NotImplementedError(
-                f"Strain: {type(table).__name__} tables are not ported yet")
+        """Strain of a 2D (exx, eyy, exy), stereo or 3D (exx, eyy, ezz,
+        exy, eyz, ezx) table."""
+        if not isinstance(table, (poi_mod.POITable2D, poi_mod.POITable2DS,
+                                  poi_mod.POITable3D)):
+            raise TypeError(f"Strain: {type(table).__name__} is no POI "
+                            "table")
         if table.device != self.device:
             raise ValueError(f"POI table on {table.device}, Strain on "
                              f"{self.device}")
         if isinstance(table, poi_mod.POITable3D):
             return self._compute_3d(table)
+        if isinstance(table, poi_mod.POITable2DS):
+            return self._compute_2ds(table)
         mode, data = self._neighbor_data(table)
         approx = self.approximation
         args = dict(radius=self.subregion_radius,
@@ -200,6 +203,45 @@ class Strain:
         def run(t, idx_c, ok_c, ur_c):
             e = strain_ops.strain3d(*full, *query(t), idx_c, ok_c, ur_c,
                                     **args)
+            return t.replace(e=e)
+
+        return base.chunked(run, table, self._chunk(nb_idx.shape[1]),
+                            nb_idx, nb_ok, use_radius)
+
+    def _compute_2ds(self, table: poi_mod.POITable2DS
+                     ) -> poi_mod.POITable2DS:
+        """Stereo strain (oc_strain.cpp:250-355): neighbours on the view-1
+        image coordinates, the fit on the reconstructed 3D reference
+        coordinates; a POI takes part only where all three ZNCCs pass."""
+        mode, data = self._neighbor_data(table)
+        args = dict(radius=self.subregion_radius,
+                    zncc_threshold=self.zncc_threshold,
+                    neighbor_min=float(self.neighbor_number_min),
+                    approximation=self.approximation)
+        rc, p = table.ref_coor, table.p
+        full = (table.x, table.y, rc[:, 0], rc[:, 1], rc[:, 2], p[:, 0],
+                p[:, 1], p[:, 2], table.r[:, 0:3].min(dim=1).values)
+
+        def query(t):
+            return (t.x, t.y, t.ref_coor[:, 0], t.ref_coor[:, 1],
+                    t.ref_coor[:, 2], t.r[:, 0:3].min(dim=1).values, t.e)
+
+        if mode == "grid":
+            iy, ix, lookup, di, dj = data
+
+            def run_g(t, iy_c, ix_c):
+                e = strain_ops.strain2ds_grid(*full, *query(t), iy_c, ix_c,
+                                              lookup, di, dj, **args)
+                return t.replace(e=e)
+
+            return base.chunked(run_g, table, self._chunk(di.shape[0]), iy,
+                                ix)
+
+        nb_idx, nb_ok, use_radius = data
+
+        def run(t, idx_c, ok_c, ur_c):
+            e = strain_ops.strain2ds(*full, *query(t), idx_c, ok_c, ur_c,
+                                     **args)
             return t.replace(e=e)
 
         return base.chunked(run, table, self._chunk(nb_idx.shape[1]),

@@ -101,12 +101,14 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def launch(wrapper, call) -> None:
+def launch(wrapper, call, shape=None) -> None:
     """Run ``call``, one kernel launch through ctypes that returns a
     cudaError_t code, raise on an error, and count it on ``wrapper``
     (``wrapper.launches``).  While ``wrapper.events`` is a list, the launch
-    is bracketed by two CUDA events appended to it as a pair, so a caller
-    can sum the kernel's device time over a run."""
+    is bracketed by two CUDA events appended to it with ``shape`` (the
+    launch's problem shape, as the wrapper gives it) as (start, end,
+    shape), so a caller can sum the kernel's device time over a run, per
+    shape."""
     import torch
 
     events = wrapper.events
@@ -117,5 +119,5 @@ def launch(wrapper, call) -> None:
     check(call(), wrapper.__name__)
     if events is not None:
         end.record()
-        events.append((start, end))
+        events.append((start, end, shape))
     wrapper.launches += 1

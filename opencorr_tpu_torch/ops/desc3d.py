@@ -307,12 +307,15 @@ def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz):
             fn = bind(_kernels.load("desc3d"))
             args = c_args(vol, starts, tab, rot, out, crop=crop, scale=scale,
                           unit_xyz=unit_xyz)
-            _kernels.launch(descriptor_hist, lambda: fn(*args[:-1]))
+            _kernels.launch(descriptor_hist, lambda: fn(*args[:-1]),
+                            shape=(k, *crop))
     return out
 
 
 descriptor_hist.launches = 0  # kernel launches, for run-level checks
-descriptor_hist.events = None  # a list: (start, end) CUDA events a launch
+# a list: (start, end) CUDA events and the shape (k, crop z, y, x) of a
+# launch
+descriptor_hist.events = None
 
 
 def construct_descriptor_fused(vol, xi, yi, zi, rot, truncate, *, crop,

@@ -1,18 +1,19 @@
-"""Batched 3D feature-affine RANSAC: a per-POI deformation guess from
-matched keypoints (oc_feature_affine.cpp:347-560).
+"""Batched feature-affine RANSAC: a per-POI deformation guess from matched
+keypoints, in 2D (oc_feature_affine.cpp:118-342) and 3D (:347-560).
 
 Per POI: the candidate keypoints (a host k-d tree, see
 ``models/feature_affine.py``), then ``trials`` RANSAC trials at once, each
-fitting a 4x4 affine to 4 distinct random candidates and counting the
-consensus set; the best set (the first maximum) gets a least-squares affine,
-which gives the 12 first-order DVC parameters.  Failure codes -1 (too few
-keypoints in reach) and -2 (inconsistent consensus).
+fitting an affine to 3 (2D) or 4 (3D) distinct random candidates and
+counting the consensus set; the best set (the first maximum) gets a
+least-squares affine, which gives the 6 first-order DIC or the 12 DVC
+parameters.  Failure codes -1 (too few keypoints in reach) and -2
+(inconsistent consensus).
 
 The reference draws from std::mt19937_64 seeded by random_device, so no two
 of its runs agree; the JAX package draws from jax.random, which PyTorch
 cannot reproduce.  The trial draws are therefore an argument here: integer
-draws [4, N, T] in [0, 2^30), which the module makes from a seeded
-``torch.Generator`` and the tests take from the JAX package.
+draws [S, N, T] in [0, 2^30) (S = 3 in 2D, 4 in 3D), which the modules make
+from a seeded ``torch.Generator`` and the tests take from the JAX package.
 """
 
 from __future__ import annotations
@@ -21,15 +22,33 @@ import numpy as np
 import torch
 
 from ..utils.precision import f32
-from .linalg import solve_small
+from .linalg import normal_product, solve_small
 
 
-def ransac_draws(seed: int, n: int, trials: int) -> torch.Tensor:
-    """[4, n, trials] int64 draws in [0, 2^30) from a CPU generator seeded
-    with ``seed``: the same numbers whatever device the RANSAC runs on."""
+def ransac_draws(seed: int, n: int, trials: int,
+                 samples: int = 4) -> torch.Tensor:
+    """[samples, n, trials] int64 draws in [0, 2^30) from a CPU generator
+    seeded with ``seed``: the same numbers whatever device the RANSAC runs
+    on."""
     gen = torch.Generator().manual_seed(int(seed))
-    return torch.randint(0, 1 << 30, (4, n, trials), generator=gen,
+    return torch.randint(0, 1 << 30, (samples, n, trials), generator=gen,
                          dtype=torch.int64)
+
+
+def feature_affine_2d_idx(ref_kp, tar_kp, xs, ys, idx, cand_mask, enough,
+                          neighbor_min, error_threshold, draws, *,
+                          trials: int, samples: int):
+    """2D RANSAC on precomputed candidates: idx/cand_mask [N, kc], enough
+    [N], draws [3, N, trials].  Returns (p6 [N, 6] u ux uy v vx vy,
+    zncc_out, iteration, feature, ok)."""
+    ctr = torch.stack([xs, ys], -1)
+    idx = idx.long()
+    rc = ref_kp[idx] - ctr[:, None]
+    tc = tar_kp[idx] - ctr[:, None]
+    n_cand = cand_mask.sum(1)
+    return _ransac_core(rc, tc, cand_mask, n_cand, enough, neighbor_min,
+                        error_threshold, draws, trials=trials,
+                        samples=samples)
 
 
 def feature_affine_3d_idx(ref_kp, tar_kp, xs, ys, zs, idx, cand_mask,
@@ -43,41 +62,31 @@ def feature_affine_3d_idx(ref_kp, tar_kp, xs, ys, zs, idx, cand_mask,
     rc = ref_kp[idx] - ctr[:, None]
     tc = tar_kp[idx] - ctr[:, None]
     n_cand = cand_mask.sum(1)
-    return _ransac_core_3d(rc, tc, cand_mask, n_cand, enough, neighbor_min,
-                           error_threshold, draws, trials=trials,
-                           samples=samples)
+    return _ransac_core(rc, tc, cand_mask, n_cand, enough, neighbor_min,
+                        error_threshold, draws, trials=trials,
+                        samples=samples)
 
 
 def _trial_errs(rc, tc, aff):
-    """Residual |ref * affine - tar| of every candidate: aff [N, T', 4, 4]
-    -> [N, T', kc]."""
+    """Residual |ref * affine - tar| of every candidate: aff [N, T', D+1,
+    D+1] -> [N, T', kc], D = 2 or 3."""
+    dim = rc.shape[-1]
     e2 = None
-    for d in range(3):
-        pd = (rc[:, None, :, 0] * aff[..., 0, d, None]
-              + rc[:, None, :, 1] * aff[..., 1, d, None]
-              + rc[:, None, :, 2] * aff[..., 2, d, None]
-              + aff[..., 3, d, None])
-        dd = pd - tc[:, None, :, d]
+    for d in range(dim):
+        pd = rc[:, None, :, 0] * aff[..., 0, d, None]
+        for i in range(1, dim):
+            pd = pd + rc[:, None, :, i] * aff[..., i, d, None]
+        dd = (pd + aff[..., dim, d, None]) - tc[:, None, :, d]
         e2 = dd * dd if e2 is None else e2 + dd * dd
     return torch.sqrt(e2)
 
 
-def _normal_product(a, b):
-    """sum_k a[n, k, i] * b[n, k, j] -> [N, I, J], each term added in k
-    order as one fused multiply-add rounded to float32 (the order in which
-    XLA computes the JAX package's small batched einsum on the CPU)."""
-    acc = torch.zeros((a.shape[0], a.shape[2], b.shape[2]), dtype=a.dtype,
-                      device=a.device)
-    for k in range(a.shape[1]):
-        acc = (a[:, k, :, None].double() * b[:, k, None, :].double()
-               + acc.double()).to(a.dtype)
-    return acc
-
-
-def _ransac_core_3d(rc, tc, cand_mask, n_cand, enough, neighbor_min,
-                    error_threshold, draws, *, trials: int, samples: int):
-    """rc/tc [N, kc, 3] POI-centred candidate coordinates, cand_mask
-    [N, kc], n_cand [N], enough [N], draws [4, N, trials]."""
+def _ransac_core(rc, tc, cand_mask, n_cand, enough, neighbor_min,
+                 error_threshold, draws, *, trials: int, samples: int):
+    """rc/tc [N, kc, D] POI-centred candidate coordinates (D = 2 or 3),
+    cand_mask [N, kc], n_cand [N], enough [N], draws [D+1, N, trials]:
+    D+1 distinct candidates a trial."""
+    dim = rc.shape[-1]
     fl = torch.float32
     n, kc = rc.shape[0], rc.shape[1]
     dev = rc.device
@@ -90,19 +99,21 @@ def _ransac_core_3d(rc, tc, cand_mask, n_cand, enough, neighbor_min,
     j3 = u[2] % torch.clamp(nn - 2, min=1)
     j3 = torch.where(j3 >= lo, j3 + 1, j3)
     j3 = torch.where(j3 >= hi, j3 + 1, j3)
-    # a fourth distinct index
-    s = torch.sort(torch.stack([j1, j2, j3], -1), -1).values
-    j4 = u[3] % torch.clamp(nn - 3, min=1)
-    for i in range(3):
-        j4 = torch.where(j4 >= s[..., i], j4 + 1, j4)
-    sample_idx = torch.stack([j1, j2, j3, j4], -1)  # [N, T, 4]
+    picks = [j1, j2, j3]
+    if dim == 3:  # a fourth distinct index
+        s = torch.sort(torch.stack(picks, -1), -1).values
+        j4 = u[3] % torch.clamp(nn - 3, min=1)
+        for i in range(3):
+            j4 = torch.where(j4 >= s[..., i], j4 + 1, j4)
+        picks.append(j4)
+    sample_idx = torch.stack(picks, -1)  # [N, T, D+1]
 
     rows = torch.arange(n, device=dev)[:, None, None]
-    a_ref = rc[rows, sample_idx]  # [N, T, 4, 3]
+    a_ref = rc[rows, sample_idx]  # [N, T, D+1, D]
     a_tar = tc[rows, sample_idx]
     ones = torch.ones(a_ref.shape[:-1] + (1,), dtype=fl, device=dev)
     affine = solve_small(torch.cat([a_ref, ones], -1),
-                         torch.cat([a_tar, ones], -1))  # [N, T, 4, 4]
+                         torch.cat([a_tar, ones], -1))  # [N, T, D+1, D+1]
 
     thr = f32(error_threshold)
     err = _trial_errs(rc, tc, affine)
@@ -131,19 +142,21 @@ def _ransac_core_3d(rc, tc, cand_mask, n_cand, enough, neighbor_min,
     one = torch.ones((n, kc, 1), dtype=fl, device=dev)
     rch = torch.cat([rc, one], -1)
     aw = rch * best_inlier.to(fl)[..., None]
-    ata = _normal_product(aw, rch)
-    atb = _normal_product(aw, torch.cat([tc, one], -1))
-    af = solve_small(ata, atb)  # [N, 4, 4]
+    ata = normal_product(aw, rch)
+    atb = normal_product(aw, torch.cat([tc, one], -1))
+    af = solve_small(ata, atb)  # [N, D+1, D+1]
 
-    # u ux uy uz v vx vy vz w wx wy wz from the affine
-    p12 = torch.stack([
-        af[:, 3, 0], af[:, 0, 0] - 1.0, af[:, 1, 0], af[:, 2, 0],
-        af[:, 3, 1], af[:, 0, 1], af[:, 1, 1] - 1.0, af[:, 2, 1],
-        af[:, 3, 2], af[:, 0, 2], af[:, 1, 2], af[:, 2, 2] - 1.0], -1)
+    # per axis: the translation, then the gradient (the diagonal minus 1),
+    # u ux uy (uz) v vx vy (vz) (w wx wy wz) (cpp:319-324, :536-548)
+    p = torch.stack([af[:, i, d] - (1.0 if i == d else 0.0) if i < dim
+                     else af[:, dim, d]
+                     for d in range(dim) for i in [dim] + list(range(dim))],
+                    -1)
 
-    ok = enough & (best_size >= samples)
+    # 2D accepts any consensus of 3 (cpp:296-299), 3D one of ``samples``
+    ok = enough & (best_size >= (3 if dim == 2 else samples))
     zero = torch.zeros((), dtype=fl, device=dev)
     zncc_out = torch.where(ok, zero, torch.where(
         enough, torch.full_like(zero, -2.0), torch.full_like(zero, -1.0)))
-    p12 = torch.where(ok[:, None], p12, zero)
-    return p12, zncc_out, iteration, best_size.to(fl), ok
+    p = torch.where(ok[:, None], p, zero)
+    return p, zncc_out, iteration, best_size.to(fl), ok

@@ -64,13 +64,14 @@ def gather_windows_2d(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     out = torch.empty((n, sh, sw), dtype=torch.float32, device=img.device)
     if n:
         with torch.cuda.device(img.device):
-            rc = _lib()(img.data_ptr(), img.shape[0], img.shape[1],
-                        y0.data_ptr(), x0.data_ptr(), n, sh, sw,
-                        out.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-        _kernels.check(rc, "gather_windows_2d")
-        gather_windows_2d.launches += 1
+            fn = _lib()
+            _kernels.launch(gather_windows_2d, lambda: fn(
+                img.data_ptr(), img.shape[0], img.shape[1], y0.data_ptr(),
+                x0.data_ptr(), n, sh, sw, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), shape=(n, sh, sw))
     return out
 
 
 gather_windows_2d.launches = 0  # kernel launches, for run-level checks
+# a list: (start, end) CUDA events and the shape (n, sh, sw) of a launch
+gather_windows_2d.events = None

@@ -1,5 +1,6 @@
 """Batched inverse-compositional Gauss-Newton (IC-GN) refinement: 2D first
-order (``icgn2d``) and 3D first order (``icgn3d1``, at the end).
+and second order with the stereo center offsets (``icgn2d``) and 3D first
+order (``icgn3d1``, at the end).
 
 Reference semantics: ``oc_icgn.cpp`` -- per POI: entry guard (bounds / NaN /
 prior failure -> ZNCC -3, oc_icgn.cpp:160-167); reference subset and its
@@ -232,20 +233,26 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
            p_in: torch.Tensor, zncc_in: torch.Tensor, conv: float,
            max_iter: float, tar_img: Optional[torch.Tensor] = None, *,
            order: int = 1, rx: int, ry: int,
+           center_offset: Optional[torch.Tensor] = None,
            window_margin: Optional[int] = None,
            stats: Optional[collections.Counter] = None):
-    """First-order IC-GN over a POI queue.
+    """First- or second-order IC-GN over a POI queue.
 
     Returns (p_out [N,12], u0, v0, zncc, iteration, convergence, computed).
-    ``window_margin`` None evaluates every sample through the global
-    per-pixel LUT; an int M uses per-POI target windows of half-extent r+M
-    around the seeded center and the lattice kernel, where a sample leaving
-    its window reads as out of range (-3).  ``stats``, when given, counts
-    the eval branches and loop phases taken."""
-    if order != 1:
-        raise NotImplementedError(
-            "icgn2d: only order 1 is ported; order 2 comes in a later slice")
+    ``center_offset`` [N, 2] (the stereo overload, oc_icgn.cpp:353-560)
+    moves each target subset's center to (x + ox, y + oy) and offsets the
+    local coordinates of the steepest-descent images by (-ox, -oy); None
+    is the plain path.  ``window_margin`` None evaluates every sample
+    through the global per-pixel LUT; an int M uses per-POI target windows
+    of half-extent r+M around the seeded target center and the lattice
+    kernel, where a sample leaving its window reads as out of range (-3).
+    ``stats``, when given, counts the eval branches and loop phases
+    taken.  It computes in the images' dtype: float32 as the package runs
+    it, float64 for a reference replay on the CPU (with the global LUT)."""
+    if order not in (1, 2):
+        raise ValueError(f"icgn2d: order must be 1 or 2, got {order}")
     dev = ref_img.device
+    fdt = ref_img.dtype
     h, w = ref_img.shape
     n = xs.shape[0]
     sh, sw = 2 * ry + 1, 2 * rx + 1
@@ -269,37 +276,61 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     ref_zm = ref_sub - ref_sub.mean(dim=1, keepdim=True)
     rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
 
-    # Local integer grid, x fastest (row-major like the reference loops).
-    xl = (torch.arange(sw, dtype=_F32, device=dev) - rx).repeat(sh)
-    yl = (torch.arange(sh, dtype=_F32, device=dev) - ry).repeat_interleave(sw)
-    xl = xl[None, :].expand(n, s)
-    yl = yl[None, :].expand(n, s)
+    # Local grid, x fastest (row-major like the reference loops), offset by
+    # the center offsets for the sd images and the warp
+    # (oc_icgn.cpp:400-408).
+    xl = (torch.arange(sw, dtype=fdt, device=dev) - rx).repeat(sh)[None, :]
+    yl = (torch.arange(sh, dtype=fdt, device=dev)
+          - ry).repeat_interleave(sw)[None, :]
+    if center_offset is None:
+        xl = xl.expand(n, s)
+        yl = yl.expand(n, s)
+        tcx, tcy = xs, ys
+    else:
+        ox, oy = center_offset[:, 0], center_offset[:, 1]
+        xl = xl - ox[:, None]
+        yl = yl - oy[:, None]
+        tcx, tcy = xs + ox, ys + oy  # target center (oc_icgn.cpp:425-426)
 
-    # Steepest-descent images and Hessian (oc_icgn.cpp:179-210).  The sd
-    # channels are gradient * monomial products, so the Hessian and the
-    # per-iteration numerator are plain weighted reductions over [N, S],
-    # each product rounded as the JAX package rounds it.
+    # Steepest-descent images and Hessian (oc_icgn.cpp:179-210, :719-759).
+    # The sd channels are gradient * monomial products, so the Hessian and
+    # the per-iteration numerator are plain weighted reductions over
+    # [N, S], each product rounded as the JAX package rounds it.
     gxs = gather_windows_2d(gx, y0, x0, sh=sh, sw=sw).reshape(n, s)
     gys = gather_windows_2d(gy, y0, x0, sh=sh, sw=sw).reshape(n, s)
-    # sd[:, i] = g_i * m_i: (gx, gx*xl, gx*yl, gy, gy*xl, gy*yl)
-    sd = torch.stack([gxs, gxs * xl, gxs * yl, gys, gys * xl, gys * yl],
-                     dim=1)  # [N, 6, S]
-    hess = torch.empty((n, 6, 6), dtype=_F32, device=dev)
-    for i in range(6):
-        for j in range(i, 6):  # (a*b) == (b*a) exactly: mirror the rest
+    if order == 1:
+        monos = (None, xl, yl)
+    else:
+        monos = (None, xl, yl, xl * xl * 0.5, xl * yl, yl * yl * 0.5)
+    # sd[:, i] = g_i * m_i: (gx * m..., gy * m...)
+    sd = torch.stack([g if m is None else g * m for g in (gxs, gys)
+                      for m in monos], dim=1)  # [N, K, S]
+    k_ch = sd.shape[1]
+    hess = torch.empty((n, k_ch, k_ch), dtype=fdt, device=dev)
+    for i in range(k_ch):
+        for j in range(i, k_ch):  # (a*b) == (b*a) exactly: mirror the rest
             hess[:, i, j] = torch.sum(sd[:, i] * sd[:, j], dim=1)
             hess[:, j, i] = hess[:, i, j]
     hinv = linalg_ops.inv_small(hess)
 
-    # Initial guess: the first-order part (oc_icgn.cpp:216).
-    p6_init = p_in[:, [0, 1, 2, 6, 7, 8]]
-    wmat0 = warp_ops.warp2d1_from_p(p6_init)
+    # Initial guess: always the first-order part (oc_icgn.cpp:216, :765).
+    first = [0, 1, 2, 6, 7, 8]
+    if order == 1:
+        wmat0 = warp_ops.warp2d1_from_p(p_in[:, first])
+        warp_from_p = warp_ops.warp2d1_from_p
+        p_from_warp = warp_ops.p_from_warp2d1
+    else:
+        p12 = torch.zeros((n, 12), dtype=fdt, device=dev)
+        p12[:, first] = p_in[:, first]
+        wmat0 = warp_ops.warp2d2_from_p(p12)
+        warp_from_p = warp_ops.warp2d2_from_p
+        p_from_warp = warp_ops.p_from_warp2d2
 
     if window_margin is not None:
         if tar_img is None:
             raise ValueError("icgn2d: the windowed eval needs tar_img")
         ev_state, ev_fn = make_windowed_eval2d_state(
-            tar_img, tar_lut, xs, ys, u_in, v_in, rx=rx, ry=ry,
+            tar_img, tar_lut, tcx, tcy, u_in, v_in, rx=rx, ry=ry,
             margin=window_margin, stats=count)
     else:
         ev_state = {}
@@ -307,24 +338,33 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
         def ev_fn(st, gxc, gyc, active):
             return bspline.bicubic_eval(tar_lut, gxc, gyc)[0]
 
-    dp_w = _dp_weights(order, rx, ry).to(dev)
+    dp_w = _dp_weights(order, rx, ry).to(device=dev, dtype=fdt)
 
     # Per-POI loop constants: the two-phase compaction gathers a shrunken
     # copy of everything the GN body reads.
-    cc = dict(tcx=xs, tcy=ys, xl=xl, yl=yl, sd=sd, ref_zm=ref_zm, rn=rn,
+    cc = dict(tcx=tcx, tcy=tcy, xl=xl, yl=yl, sd=sd, ref_zm=ref_zm, rn=rn,
               hinv=hinv, ev=ev_state)
+
+    def warped(cc, wmat):
+        """Target coordinates of the warped local grid
+        (oc_deformation.cpp:94-105, :268-282)."""
+        xl, yl = cc["xl"], cc["yl"]
+        if order == 1:
+            rows, basis = wmat[:, :2], (xl, yl)
+        else:
+            rows, basis = wmat[:, 3:5], (xl * xl, xl * yl, yl * yl, xl, yl)
+        out = []
+        for r, ctr in enumerate((cc["tcx"], cc["tcy"])):
+            acc = rows[:, r, len(basis)][:, None]
+            for c, b in enumerate(basis):
+                acc = acc + rows[:, r, c][:, None] * b
+            out.append(ctr[:, None] + acc)
+        return out
 
     def body(cc, state):
         wmat, active, it, dpn, znssd, oob_fail = state
-        xl, yl = cc["xl"], cc["yl"]
         rn, hinv = cc["rn"], cc["hinv"]
-        # Warp the local grid (oc_deformation.cpp:94-105).
-        gx_c = cc["tcx"][:, None] + (wmat[:, 0, 2][:, None]
-                                     + wmat[:, 0, 0][:, None] * xl
-                                     + wmat[:, 0, 1][:, None] * yl)
-        gy_c = cc["tcy"][:, None] + (wmat[:, 1, 2][:, None]
-                                     + wmat[:, 1, 0][:, None] * xl
-                                     + wmat[:, 1, 1][:, None] * yl)
+        gx_c, gy_c = warped(cc, wmat)
         tval = ev_fn(cc["ev"], gx_c, gy_c, active)
 
         # Out-of-range detection, -1 sentinel (oc_icgn.cpp:244-255).
@@ -334,9 +374,9 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
         tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
         err = tar_zm * (rn / tn)[:, None] - cc["ref_zm"]
         znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
-        num = torch.sum(cc["sd"] * err[:, None, :], dim=2)  # [N, 6]
+        num = torch.sum(cc["sd"] * err[:, None, :], dim=2)  # [N, K]
         dp = torch.bmm(hinv, num[:, :, None])[:, :, 0]
-        winc = warp_ops.warp2d1_from_p(dp)
+        winc = warp_from_p(dp)
         wmat_new = torch.bmm(wmat, linalg_ops.inv_small(winc))
         dpn_new = torch.sqrt(torch.sum(dp * dp * dp_w[None, :], dim=1))
 
@@ -381,23 +421,27 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
         wmat, _, it, dpn, znssd, oob_fail = state
 
     computed = valid & ~oob_fail
-    p_new = warp_ops.p_from_warp2d1(wmat)  # [N, 6]
+    p_new = p_from_warp(wmat)  # [N, 6] or [N, 12]
     zncc = 0.5 * (2.0 - znssd)
     # Not-converged code (oc_icgn.cpp:329-332).
     zncc = torch.where((dpn >= conv) & (it >= max_iter),
                        torch.full_like(zncc, -4.0), zncc)
-    u_new, v_new = p_new[:, 0], p_new[:, 3]
+    cu, cv = (0, 3) if order == 1 else (0, 6)
     # NaN fallback (oc_icgn.cpp:335-340): restore u, v to the initial guess.
-    isnan = torch.isnan(zncc) | torch.isnan(u_new) | torch.isnan(v_new)
+    isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, cu])
+             | torch.isnan(p_new[:, cv]))
     zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
     p_new = p_new.clone()
-    p_new[:, 0] = torch.where(isnan, u_in, p_new[:, 0])
-    p_new[:, 3] = torch.where(isnan, v_in, p_new[:, 3])
+    p_new[:, cu] = torch.where(isnan, u_in, p_new[:, cu])
+    p_new[:, cv] = torch.where(isnan, v_in, p_new[:, cv])
 
     # Merge the updated components back into the 12-dof table rows.
-    p_out = p_in.clone()
-    for src, dst in enumerate([0, 1, 2, 6, 7, 8]):
-        p_out[:, dst] = torch.where(computed, p_new[:, src], p_in[:, dst])
+    if order == 1:
+        p_out = p_in.clone()
+        for src, dst in enumerate(first):
+            p_out[:, dst] = torch.where(computed, p_new[:, src], p_in[:, dst])
+    else:
+        p_out = torch.where(computed[:, None], p_new, p_in)
 
     # Failure ZNCC for guarded-out POIs (oc_icgn.cpp:165).
     zncc_guard = torch.where(zncc_in >= 0, torch.full_like(zncc_in, -3.0),

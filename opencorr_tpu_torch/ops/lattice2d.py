@@ -98,13 +98,15 @@ def lattice_eval_2d(eblk: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
     out = torch.empty((n, sy, sx), dtype=torch.float32, device=eblk.device)
     if n:
         with torch.cuda.device(eblk.device):
-            rc = _lib()(eblk.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                        fy.data_ptr(), fx.data_ptr(), out.data_ptr(), n, sy,
-                        sx, ey, ex, 2 * d_wobble,
-                        torch.cuda.current_stream().cuda_stream)
-        _kernels.check(rc, "lattice_eval_2d")
-        lattice_eval_2d.launches += 1
+            fn = _lib()
+            _kernels.launch(lattice_eval_2d, lambda: fn(
+                eblk.data_ptr(), dy.data_ptr(), dx.data_ptr(), fy.data_ptr(),
+                fx.data_ptr(), out.data_ptr(), n, sy, sx, ey, ex,
+                2 * d_wobble, torch.cuda.current_stream().cuda_stream),
+                shape=(n, sy, sx, d_wobble))
     return out
 
 
 lattice_eval_2d.launches = 0  # kernel launches, for run-level checks
+# a list: (start, end) CUDA events and the shape (n, sy, sx, D) of a launch
+lattice_eval_2d.events = None

@@ -115,9 +115,12 @@ def lattice_eval_3d(eblk: torch.Tensor, dz: torch.Tensor, dy: torch.Tensor,
         with torch.cuda.device(eblk.device):
             fn = bind(_kernels.load("lattice3d"))
             _kernels.launch(lattice_eval_3d, lambda: fn(*c_args(
-                eblk, dz, dy, dx, fz, fy, fx, out, d_wobble)))
+                eblk, dz, dy, dx, fz, fy, fx, out, d_wobble)),
+                shape=(n, sz, sy, sx, d_wobble))
     return out
 
 
 lattice_eval_3d.launches = 0  # kernel launches, for run-level checks
-lattice_eval_3d.events = None  # a list: (start, end) CUDA events a launch
+# a list: (start, end) CUDA events and the shape (n, sz, sy, sx, D) of a
+# launch
+lattice_eval_3d.events = None

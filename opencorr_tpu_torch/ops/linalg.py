@@ -13,12 +13,27 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.precision import fma
+
+
+def normal_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[n, k, i] * b[n, k, j] -> [N, I, J] float32, each term added
+    in k order as one fused multiply-add (``fma``): the order in which XLA
+    computes the JAX package's small batched einsums (normal equations) on
+    the CPU."""
+    acc = torch.zeros((a.shape[0], a.shape[2], b.shape[2]),
+                      dtype=torch.float32, device=a.device)
+    for k in range(a.shape[1]):
+        acc = fma(a[:, k, :, None], b[:, k, None, :], acc)
+    return acc
+
 
 def _eliminate(aug: torch.Tensor, k: int) -> torch.Tensor:
     """Each update aug - factor * row rounds once to float32, as a fused
     multiply-add: XLA compiles the JAX package's elimination so on the CPU.
     The product of two float32 values is exact in float64, so only the
-    difference rounds."""
+    difference rounds (``fma``'s rule, written out here to keep float64
+    systems, such as IC-GN's reference replay, in float64)."""
     for i in range(k):
         pivot = aug[..., i: i + 1, i: i + 1]
         row = aug[..., i: i + 1, :] / pivot

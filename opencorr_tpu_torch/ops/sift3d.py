@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.precision import f32
+from ..utils.precision import f32, fma
 
 IMG_BORDER = 1  # oc_sift.h:22
 
@@ -99,14 +99,6 @@ def blur_taps(sigma: float, unit_xyz) -> list:
     return out
 
 
-def _fma(t: float, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """t * a + c rounded once to float32: the product of two float32 values
-    is exact in float64, so only the sum rounds (twice, to float64 and then
-    to float32, which differs from a true fused multiply-add only when the
-    float64 sum lands exactly halfway between two float32 values)."""
-    return a.double().mul_(t).add_(c.double()).float()
-
-
 def gaussian_blur(vol: torch.Tensor, sigma: float, unit_xyz) -> torch.Tensor:
     """Separable mirror-extension blur: per axis, t0 * v plus, for each
     r >= 1, t_r * (v[-r] + v[+r]) in increasing r.
@@ -125,9 +117,9 @@ def gaussian_blur(vol: torch.Tensor, sigma: float, unit_xyz) -> torch.Tensor:
             return padded.narrow(axis, radius - r, n) \
                 + padded.narrow(axis, radius + r, n)
 
-        acc = _fma(taps[0], out, side(1).mul_(taps[1]))
+        acc = fma(taps[0], out, side(1).mul_(taps[1]))
         for r in range(2, radius + 1):
-            acc = _fma(taps[r], side(r), acc)
+            acc = fma(taps[r], side(r), acc)
         del padded
         out = acc
     return out

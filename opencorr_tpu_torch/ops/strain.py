@@ -340,7 +340,15 @@ def strain3d(xs, ys, zs, us, vs, ws, zncc, qx, qy, qz, qzncc, qe_in,
     strict = dx * dx + dy * dy + dz * dz < r2
     sel = nb_ok & (strict | ~use_radius[:, None])
     wf = (sel & (nz >= zncc_threshold)).to(torch.float32)
+    return _strain_3d_fit(dx, dy, dz, nu, nv, nw, wf, qzncc, qe_in,
+                          zncc_threshold, neighbor_min, approximation)
 
+
+def _strain_3d_fit(dx, dy, dz, nu, nv, nw, wf, qzncc, qe_in, zncc_threshold,
+                   neighbor_min, approximation):
+    """The 3D fit and strain of DVC and stereo strain: (exx, eyy, ezz, exy,
+    eyz, ezx) where the query passes the gate and has enough neighbours,
+    else ``qe_in``."""
     (ux, uy, uz, vx, vy, vz, wx, wy, wz, fit_count) = _fit_gradients_3d(
         dx, dy, dz, nu, nv, nw, wf)
 
@@ -372,3 +380,46 @@ def strain3d_grid(xs, ys, zs, us, vs, ws, zncc, qx, qy, qz, qzncc, qe_in,
     return strain3d(xs, ys, zs, us, vs, ws, zncc, qx, qy, qz, qzncc, qe_in,
                     nb_idx, nb_ok, use_radius, radius, zncc_threshold,
                     neighbor_min, approximation=approximation)
+
+
+def strain2ds(sx2, sy2, xs, ys, zs, us, vs, ws, zncc, qx2, qy2, qx, qy, qz,
+              qzncc, qe_in, nb_idx, nb_ok, use_radius, radius: float,
+              zncc_threshold: float, neighbor_min: float, *,
+              approximation: int) -> torch.Tensor:
+    """Stereo strain for a chunk of query POIs (oc_strain.cpp:250-355):
+    the neighbours are searched on the view-1 image coordinates (sx2, sy2;
+    queries qx2, qy2), the displacement gradients are fitted against the
+    reconstructed 3D reference coordinates (xs, ys, zs; queries qx, qy,
+    qz).  ``zncc`` is each POI's smallest of its three ZNCCs.  Returns the
+    updated [C, 6] strain."""
+    nb = nb_idx.long()
+    nu = (us - us.mean())[nb]
+    nv = (vs - vs.mean())[nb]
+    nw = (ws - ws.mean())[nb]
+    nz = zncc[nb]
+    dx = xs[nb] - qx[:, None]
+    dy = ys[nb] - qy[:, None]
+    dz = zs[nb] - qz[:, None]
+
+    dx2 = sx2[nb] - qx2[:, None]
+    dy2 = sy2[nb] - qy2[:, None]
+    r2 = float(np.float32(radius) * np.float32(radius))  # the f32 square
+    strict = dx2 * dx2 + dy2 * dy2 < r2
+    sel = nb_ok & (strict | ~use_radius[:, None])
+    wf = (sel & (nz >= zncc_threshold)).to(torch.float32)
+    return _strain_3d_fit(dx, dy, dz, nu, nv, nw, wf, qzncc, qe_in,
+                          zncc_threshold, neighbor_min, approximation)
+
+
+def strain2ds_grid(sx2, sy2, xs, ys, zs, us, vs, ws, zncc, qx2, qy2, qx, qy,
+                   qz, qzncc, qe_in, qiy, qix, lookup, di, dj, radius,
+                   zncc_threshold, neighbor_min, *,
+                   approximation: int) -> torch.Tensor:
+    """Grid path for stereo strain: the view-1 image coordinates form the
+    grid."""
+    nb_idx, nb_ok = grid_neighbors_2d(qiy, qix, lookup, di, dj)
+    use_radius = torch.ones(qx.shape, dtype=torch.bool, device=qx.device)
+    return strain2ds(sx2, sy2, xs, ys, zs, us, vs, ws, zncc, qx2, qy2, qx,
+                     qy, qz, qzncc, qe_in, nb_idx, nb_ok, use_radius, radius,
+                     zncc_threshold, neighbor_min,
+                     approximation=approximation)

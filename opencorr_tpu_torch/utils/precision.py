@@ -27,6 +27,17 @@ def f32(x) -> float:
     return float(np.float32(x))
 
 
+def fma(a, b, c):
+    """a * b + c rounded once to float32, as a fused multiply-add.  XLA
+    contracts the JAX package's float32 multiply-adds on the CPU into such
+    single roundings; the product of two float32 values is exact in
+    float64, so only the sum rounds (twice, float64 then float32, which
+    agrees with one rounding except at exact float32 midpoints).  Any of
+    the operands may be a Python float."""
+    d = lambda t: t.double() if torch.is_tensor(t) else t
+    return (d(a) * d(b) + d(c)).float()
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device a module or function runs on.
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's DVC paths on one GPU.
+"""Device-time breakdown of the port's DVC and stereo paths on one GPU.
 
 Run from the root of the repository:
 
     python3 profile_torch_dvc.py              # FFTCC3D -> ICGN3D1 -> Strain
     python3 profile_torch_dvc.py --path sift  # SIFT3D -> FA3D -> ICGN3D1
+    python3 profile_torch_dvc.py --path stereo  # the stereo example's run
 
 It builds the CUDA kernels and makes ``chip_smoke.py``'s volume pair.  The
 default path warms up on 512 POIs, then runs FFTCC3D(30) ->
@@ -12,7 +13,10 @@ ICGN3D1(30, 0.001, 10) -> Strain(30, 10) on the 5,733 POIs of the al_foam4
 grid of the 700x100x100 speckle pair.  ``--path sift`` warms up on a
 sub-volume, then runs SIFT3D() -> FeatureAffine3D(16, 16, 16) ->
 ICGN3D1(16, 16, 16, 0.001, 10) on the 78,246 POIs of the 568x288x940
-Torus-size pair.  Either runs under ``torch.profiler`` and prints, per
+Torus-size pair.  ``--path stereo`` warms up on a crop, then runs
+``examples/stereo_3d_dic_epipolar_sift.run`` on ``chip_smoke.py``'s
+1920x1200 stereo scene (10,000 POIs), whose phases open their own ranges.
+Each runs under ``torch.profiler`` and prints, per
 stage, the host wall time, the device time of the kernels launched in it
 (their sum over the wall time is the device's busy share), the kernels
 that took the most of it and the port's own kernels, as JSON lines, the
@@ -82,9 +86,32 @@ def _sift_path(torch, cs, ot):
                                "matches": len(sift.ref_matched_kp)}
 
 
+def _stereo_path(torch, cs, ot):
+    """The stereo example's run at GT4's size on chip_smoke.py's scene; its
+    phases are the ranges ``stage:<name>`` it opens itself."""
+    from opencorr_tpu_torch.examples import stereo_3d_dic_epipolar_sift as ex
+
+    views, pts, _, _ = cs.stereo_inputs()
+    crops, local, offset = cs.stereo_crop(views, pts)
+    ex.run(*[ot.Image2D.from_array(c) for c in crops], local,
+           *cs.stereo_calibrations(ot, "cuda", offset))
+    imgs = [ot.Image2D.from_array(v) for v in views]
+    info = {}
+
+    def stereo(table):
+        out, times = ex.run(*imgs, pts, *cs.stereo_calibrations(ot, "cuda"),
+                            stats=info)
+        info["stage_ms"] = {k: v * 1e3 for k, v in times.items()}
+        return out
+
+    return (("stereo", stereo),), ot.new_table_2d(pts[:, 0], pts[:, 1]), \
+        lambda: {k: v for k, v in info.items() if k != "sift2d_octaves"}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--path", choices=("dvc", "sift"), default="dvc")
+    parser.add_argument("--path", choices=("dvc", "sift", "stereo"),
+                        default="dvc")
     args = parser.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -101,6 +128,9 @@ def main() -> int:
     if args.path == "sift":
         _kernels.build(["lattice3d", "desc3d"])
         run, pois, stats = _sift_path(torch, cs, ot)
+    elif args.path == "stereo":
+        _kernels.build(["gather2d", "lattice2d"])
+        run, pois, stats = _stereo_path(torch, cs, ot)
     else:
         _kernels.build(["lattice3d"])
         run, pois, stats = _dvc_path(torch, cs, ot)
@@ -117,6 +147,8 @@ def main() -> int:
                 torch.cuda.synchronize()
             stages[name] = (time.perf_counter() - t0) * 1e3
 
+    info = stats()
+    stages.update(info.pop("stage_ms", {}))  # ranges a stage opened itself
     events = prof.events()
     on_device = lambda e: str(e.device_type).endswith("CUDA")
     # the stage ranges on the host, and the kernels (the device events that
@@ -146,7 +178,7 @@ def main() -> int:
                           if any(p in k for p in PORT_KERNELS)})
     for name, rec in out.items():
         print(json.dumps({"stage": name, "pois": pois.n, **rec}), flush=True)
-    print(json.dumps(stats()), flush=True)
+    print(json.dumps(info), flush=True)
     print(cs.card_line(), flush=True)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0

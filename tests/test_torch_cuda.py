@@ -13,6 +13,8 @@ max|S| (float atomics sum in an order that varies from run to run), on
 white noise and on blurred volumes.  The DVC modules and
 the SIFT3D slice: cuda against cpu on small pairs."""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -360,3 +362,98 @@ def test_sift3d_slice_cuda_match_cpu(cuda):
                     desc3d.descriptor_hist.launches - before)
     assert out["cuda"][:3] == out["cpu"][:3]
     assert out["cuda"][3] == 2 and out["cpu"][3] == 0
+
+
+@pytest.mark.cuda
+def test_gather_kernel_epipolar_windows(cuda):
+    """Kernel 1 at the stereo path's 41x41 epipolar candidate subsets (one
+    chunk: 1,489 POIs x 11 candidates) on a GT4-size image."""
+    rng = np.random.default_rng(41)
+    img = torch.from_numpy(np.round(rng.uniform(0, 255, (1200, 1920))).astype(
+        np.float32))
+    y0, x0 = (torch.from_numpy(a) for a in _corners(16379, 1200, 1920, 41,
+                                                    41, seed=41, low=-41))
+    got = gather2d.gather_windows_2d(img.to(cuda), y0.to(cuda), x0.to(cuda),
+                                     sh=41, sw=41)
+    torch.cuda.synchronize()
+    want = gather2d.gather_windows_2d_plain(img, y0, x0, sh=41, sw=41)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0.3, 3.2])
+def test_windowed_eval_second_order_layouts(cuda, shift):
+    """Kernel 2 through the windowed eval on second-order warped subsets
+    (r=16): D=2 blocks for all POIs and, where every 8th POI has the
+    larger seed error, the D=6 correction; cuda within 1e-6 x 255 of
+    cpu."""
+    from opencorr_tpu_torch.ops import bspline
+    from opencorr_tpu_torch.ops import icgn as ticgn
+    from opencorr_tpu_torch.ops import warp as twarp
+
+    rng = np.random.default_rng(int(shift * 10))
+    img = np.round(rng.uniform(30, 220, (300, 320))).astype(np.float32)
+    n, r = 400, 16
+    cx = rng.integers(60, 260, n).astype(np.float32)
+    cy = rng.integers(60, 240, n).astype(np.float32)
+    p = np.zeros((n, 12), np.float32)
+    p[:, [0, 6]] = rng.uniform(-1.5, 1.5, (n, 2))
+    p[:, [1, 2, 7, 8]] = rng.normal(0, 0.01, (n, 4))
+    p[:, [3, 4, 5, 9, 10, 11]] = rng.normal(0, 2e-4, (n, 6))
+    wm = twarp.warp2d2_from_p(torch.from_numpy(p)).double().numpy()
+    g = np.arange(-r, r + 1, dtype=np.float64)
+    xl, yl = np.tile(g, 2 * r + 1), np.repeat(g, 2 * r + 1)
+    basis = np.stack([xl * xl, xl * yl, yl * yl, xl, yl, np.ones_like(xl)])
+    off = np.where(np.arange(n) % 8 == 0, shift, 0.3)[:, None]
+    gx = (cx[:, None] + off + wm[:, 3] @ basis).astype(np.float32)
+    gy = (cy[:, None] - off + wm[:, 4] @ basis).astype(np.float32)
+    seed = [torch.from_numpy(a) for a in (cx, cy, p[:, 0], p[:, 6])]
+    outs, branches = {}, {}
+    for dev in ("cpu", "cuda"):
+        t_img = torch.from_numpy(img).to(dev)
+        lut = bspline.bicubic_prepare(t_img)
+        branches[dev] = collections.Counter()
+        st, fn = ticgn.make_windowed_eval2d_state(
+            t_img, lut, *(a.to(dev) for a in seed), rx=r, ry=r, margin=8,
+            stats=branches[dev])
+        before = lattice2d.lattice_eval_2d.launches
+        outs[dev] = fn(st, torch.from_numpy(gx).to(dev),
+                       torch.from_numpy(gy).to(dev),
+                       torch.ones(n, dtype=torch.bool, device=dev)).cpu()
+    torch.cuda.synchronize()
+    assert lattice2d.lattice_eval_2d.launches > before
+    assert branches["cuda"] == branches["cpu"]
+    assert (branches["cuda"]["correct"] > 0) == (shift > 1)
+    np.testing.assert_array_equal(outs["cuda"] == -1, outs["cpu"] == -1)
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 255e-6
+
+
+@pytest.mark.cuda
+def test_epipolar_search_cuda_matches_cpu(cuda):
+    """EpipolarSearch with the stereo example's settings on a small pair
+    rendered through the GT4 cameras (chip_smoke.py's scene): codes and
+    iterations equal, u/v within 1e-3 px."""
+    import chip_smoke as cs
+    import opencorr_tpu_torch as ot
+
+    views, pts, _, _ = cs.stereo_inputs((224, 288), ((76, 104), 13, 8, 12),
+                                        seed=5)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        epi = ot.EpipolarSearch(*cs.stereo_calibrations(ot, dev),
+                                device=dev)
+        epi.set_parallax(cs.STEREO_PARALLAX)
+        epi.set_search(30, 5)
+        epi.create_icgn(20, 20, 0.05, 10)
+        epi.set_images(views[0], views[1])
+        epi.prepare()
+        outs[dev] = ot.table_to_numpy(epi.compute(ot.new_table_2d(
+            pts[:, 0], pts[:, 1], device=dev)))
+    zc, zp = outs["cuda"]["r"][:, 2], outs["cpu"]["r"][:, 2]
+    np.testing.assert_array_equal(np.where(zc < 0, zc, 1),
+                                  np.where(zp < 0, zp, 1))
+    np.testing.assert_array_equal(outs["cuda"]["r"][:, 3],
+                                  outs["cpu"]["r"][:, 3])
+    np.testing.assert_allclose(outs["cuda"]["p"], outs["cpu"]["p"], rtol=0,
+                               atol=1e-3)
+    assert (zp > 0.9).mean() > 0.9

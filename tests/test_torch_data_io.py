@@ -199,13 +199,16 @@ def test_tf32_is_off():
 
 
 def test_unported_options_raise():
+    """What this slice still leaves out raises; ICGN2D2 and the stereo
+    center offsets are ported (tests/test_torch_stereo_icgn.py)."""
+    for cls in (ot.ICGN2D1, ot.ICGN2D2):
+        m = cls(16, 16, device=CPU)
+        with pytest.raises(NotImplementedError):
+            m.set_self_adaptive(True)
     with pytest.raises(NotImplementedError):
-        ot.ICGN2D2(16, 16, device=CPU)
-    m = ot.ICGN2D1(16, 16, device=CPU)
+        ot.SIFT2D(backend="opencv", device=CPU)
+    fa = ot.FeatureAffine2D(16, 16, device=CPU)
     with pytest.raises(NotImplementedError):
-        m.set_self_adaptive(True)
-    m.set_images(np.zeros((64, 64), np.float32), np.zeros((64, 64), np.float32))
-    m.prepare()
-    t = ot.poi_grid_2d((30, 30), 2, 2, 2, device=CPU)
+        fa.set_self_adaptive(True)
     with pytest.raises(NotImplementedError):
-        m.compute(t, center_offset=torch.zeros((t.n, 2)))
+        ot.FeatureAffine2D(16, 16, neighbor_backend="device", device=CPU)
