@@ -29,8 +29,14 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    keypoint) on white noise and on the same volume blurred at the layer's
    sigma, and at the octave-1 layers' counts (5,942, 1,507 and 564 at
    twice the voxel pitch) on the blurred volume, every keypoint within
-   1e-5 x max|S| (float atomics sum in a varying order).  Kernel, plain
-   and library times; kernel 4's bound counts the voxels it must read.
+   1e-5 x max|S| (float atomics sum in a varying order).  Then kernels 1
+   and 2 ``==`` their plain versions at every shape of phase 12's planar
+   suite that the lists above lack, derived from the port's own chunk,
+   correction-cap and compaction rules (``dic2d_launch_shapes``): the
+   gather at 42,025 x 25x25 and 32x32, 1,313 x 40x40 and 937 x 48x48, the
+   lattice eval at D=2 on 42,025 and 10,507 x 25x25 and 7,500 x 33x33 and
+   at D=6 on 1,313 x 25x25 and 937 x 33x33.  Kernel, plain and library
+   times; kernel 4's bound counts the voxels it must read.
 3. The main path on ``cuda``: FFTCC2D(16,16) -> ICGN2D1(16,16,0.001,10) ->
    Strain(20,5) on ``poi_grid_2d((30,30),100,300,2)`` (30,000 POIs) of a
    900x280 8-bit speckle pair whose target is the reference under a known
@@ -90,7 +96,29 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    converged fraction (>= 0.9), each view's mean position error (< 0.02
    px) and the mean 3D displacement error against the bound from moving
    every matched coordinate by 0.02 px.
-11. JSON lines: per-kernel records, the stage times, and last
+11. ICLM2D1, NR2D1 (phase 3's pair, every 40th POI, FFTCC seeds, every
+   8th moved 3 px for ICLM2D1), ICLM2D2 (phase 12's rotation pair) and
+   the self-adaptive ICGN2D1 and ICLM2D1 (the utn-size pair, radii 10-25)
+   on ``cuda`` and on ``cpu``: codes equal, u/v within 1e-3 px.
+12. The planar example suite on ``cuda``: ``examples/dic_2d.run`` for all
+   seven workloads at the reference programs' grids and radii, after a
+   warm-up of each on a small grid: fftcc_icgn1, fftcc_iclm1 and fftcc_nr1
+   (30,000 POIs, r=16) on phase 3's pair; sift_icgn2 and sift_iclm2
+   (42,025 POIs, r=12) on a 512x512 pair whose target is rotated 170
+   degrees; self_adaptive (38,400 POIs, SIFT2D -> FeatureAffine2D
+   self-adaptive -> ICGN2D1(30) self-adaptive -> Strain(25, 10)) on a
+   3751x501 pair stretched 0.5% along x; strain (Strain(20, 5)) from the
+   fftcc_icgn1 table just written.  Counters zeroed after the warm-up and
+   read after the suite, kernels 1 and 2 timed per launch per workload;
+   prints each workload's stage times, table-writer times, branch counts,
+   SIFT2D octave counts beside their caps, r_max and the writer.  Checks:
+   the native table codec loaded and wrote every table; converged >= 0.9
+   and mean |u - u_true|, |v - v_true| < 0.01 px on every refining
+   workload (self_adaptive at the moved POIs, every radius >= 10); mean
+   exx and eyy of strain, and exx of self_adaptive, within 1e-3 of the
+   imposed 0.005; the fftcc_icgn1 table equal to phase 3's; every launch
+   shape one that phase 2 checked.
+13. JSON lines: per-kernel records, the stage times, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -189,6 +217,21 @@ STEREO_PLATE_PX = 70
 STEREO_TOL_PX = 0.02  # mean |position - truth| gate of r2, t1 and t2
 
 
+# The planar example suite (examples/dic_2d.py: the reference's
+# test_2d_dic_*.cpp programs at their grids and radii), on synthetic 8-bit
+# pairs of the reference datasets' sizes: the oht_cfrp workloads on phase
+# 3's pair; the rotation pair (rotation_000/170), a 512x512 speckle whose
+# target is rotated ROT_DEG about the centre and shifted; the utn pair's
+# size, 3751x501, stretched UTN_STRETCH along x about the centre and
+# shifted.
+ROT_SIZE = (512, 512)
+ROT_DEG = 170.0
+ROT_SHIFT = (0.3, -0.4)
+UTN_SIZE = (501, 3751)
+UTN_STRETCH = 0.005
+UTN_SHIFT = (0.43, -0.27)
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -264,6 +307,22 @@ def event_ms(wrapper):
                 by_shape=by_shape)
 
 
+def merge_event_ms(recs):
+    """``event_ms`` records of several runs summed, per kernel."""
+    out = {}
+    for rec in recs:
+        for name, ev in rec.items():
+            m = out.setdefault(name, dict(launches=0, ms_sum=0.0,
+                                          by_shape={}))
+            m["launches"] += ev["launches"]
+            m["ms_sum"] += ev["ms_sum"]
+            for s, v in ev["by_shape"].items():
+                b = m["by_shape"].setdefault(s, dict(launches=0, ms_sum=0.0))
+                b["launches"] += v["launches"]
+                b["ms_sum"] += v["ms_sum"]
+    return out
+
+
 def epipolar_windows(ot):
     """Candidate windows a chunk of the stereo path's EpipolarSearch
     gathers: the search's own chunk rule over STEREO_POIS POIs (the last
@@ -278,97 +337,113 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def gather_case(torch, src, n, sh, sw, rng, reps, **tags):
+    """Kernel 1 ``==`` its plain version and ``unfold`` + index on ``n``
+    random corners of ``src``, one in ten needing a clamp; timed."""
+    from opencorr_tpu_torch.ops import gather2d
+
+    dev = src.device
+    h, w = src.shape
+    y0 = rng.integers(0, h - sh + 1, n)
+    x0 = rng.integers(0, w - sw + 1, n)
+    bad = rng.uniform(size=n) < 0.1  # corners that need clamping
+    y0[bad] = rng.integers(-sh, h + sh, bad.sum())
+    x0[bad] = rng.integers(-sw, w + sw, bad.sum())
+    y0 = torch.from_numpy(y0.astype(np.int32)).to(dev)
+    x0 = torch.from_numpy(x0.astype(np.int32)).to(dev)
+    got = gather2d.gather_windows_2d(src, y0, x0, sh=sh, sw=sw)
+    want = gather2d.gather_windows_2d_plain(src, y0, x0, sh=sh, sw=sw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"gather {n}x{sh}x{sw} not bit-exact")
+
+    def library():
+        yc = y0.long().clamp(0, h - sh)
+        xc = x0.long().clamp(0, w - sw)
+        return src.unfold(0, sh, 1).unfold(1, sw, 1)[yc, xc]
+
+    check(torch.equal(library(), want), "gather library call differs")
+    nbytes = (h * w + n * sh * sw + 2 * n) * 4
+    rec = dict(
+        shape=[n, sh, sw], **tags, max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d(
+            src, y0, x0, sh=sh, sw=sw), reps),
+        plain_ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d_plain(
+            src, y0, x0, sh=sh, sw=sw), reps),
+        library_ms=cuda_ms(torch, library, reps),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes, clamped=int(bad.sum()))
+    log(json.dumps({"kernel": "gather_windows_2d", **rec}))
+    return rec
+
+
+def lattice_case(torch, dev, n, s, d, rng, reps, exact=False, **tags):
+    """Kernel 2 against its plain version on random blocks and offsets (5%
+    out of range, which must give exactly 0): within 1e-6 x max|eblk|, or
+    ``==`` when ``exact``; timed."""
+    from opencorr_tpu_torch.ops import lattice2d
+
+    wl = 4 + 2 * d
+    eblk = torch.from_numpy(np.round(rng.uniform(
+        0, 255, (n, s + wl - 1, s + wl - 1))).astype(np.float32)).to(dev)
+    dy = rng.integers(0, 2 * d + 1, (n, s, s))
+    dx = rng.integers(0, 2 * d + 1, (n, s, s))
+    for a in (dy, dx):
+        bad = rng.uniform(size=a.shape) < 0.05
+        a[bad] = rng.choice([-1, 2 * d + 1, -9, 40], bad.sum())
+    dy = torch.from_numpy(dy.astype(np.int32)).to(dev)
+    dx = torch.from_numpy(dx.astype(np.int32)).to(dev)
+    fy = torch.from_numpy(rng.uniform(0, 1, (n, s, s)).astype(
+        np.float32)).to(dev)
+    fx = torch.from_numpy(rng.uniform(0, 1, (n, s, s)).astype(
+        np.float32)).to(dev)
+    args = (eblk, dy, dx, fy, fx)
+    got = lattice2d.lattice_eval_2d(*args, d_wobble=d)
+    want = lattice2d.lattice_eval_2d_plain(*args, d_wobble=d)
+    torch.cuda.synchronize()
+    oor = (dy < 0) | (dy > 2 * d) | (dx < 0) | (dx > 2 * d)
+    check(bool((got[oor] == 0).all()), f"lattice D={d}: nonzero out of "
+          "range")
+    err = float((got - want).abs().max())
+    tol = 0.0 if exact else 1e-6 * float(eblk.abs().max())
+    check(torch.equal(got, want) if exact else err <= tol,
+          f"lattice D={d} {n}x{s}x{s}: max|err| {err} > {tol}")
+    in_range = int((~oor).sum())
+    nbytes = (eblk.numel() + 5 * n * s * s) * 4
+    flops = in_range * LATTICE_FLOPS
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOP_PER_S * 1e3
+    rec = dict(
+        shape=[n, s, s], d_wobble=d, **tags, max_abs_err=err, tolerance=tol,
+        ms=cuda_ms(torch, lambda: lattice2d.lattice_eval_2d(
+            *args, d_wobble=d), reps),
+        plain_ms=cuda_ms(torch, lambda: lattice2d.lattice_eval_2d_plain(
+            *args, d_wobble=d), reps),
+        library_ms=None, bound_ms=max(tb, tf),
+        bound_by="bytes" if tb >= tf else "operations",
+        bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
+    log(json.dumps({"kernel": "lattice_eval_2d", **rec}))
+    return rec
+
+
 def phase_kernels(torch, ot, img, rng, reps):
     """Kernel vs plain version on the card at the main path's shapes."""
-    from opencorr_tpu_torch.ops import gather2d, lattice2d
-
     dev = img.device
-    records = {"gather": [], "lattice": []}
     # the stereo path's epipolar candidates: a chunk's POIs x 11 candidates
     # at r=20, read from a GT4-size image
     simg = torch.from_numpy(np.round(rng.uniform(0, 255, STEREO_SIZE)).astype(
         np.float32)).to(dev)
     side = 2 * STEREO_EPI_R + 1
-    for n, sh, sw, src in ((30000, 32, 32, img), (30000, 33, 33, img),
-                           (30000, 40, 40, img), (940, 48, 48, img),
-                           (epipolar_windows(ot), side, side, simg)):
-        h, w = src.shape
-        y0 = rng.integers(0, h - sh + 1, n)
-        x0 = rng.integers(0, w - sw + 1, n)
-        bad = rng.uniform(size=n) < 0.1  # corners that need clamping
-        y0[bad] = rng.integers(-sh, h + sh, bad.sum())
-        x0[bad] = rng.integers(-sw, w + sw, bad.sum())
-        y0 = torch.from_numpy(y0.astype(np.int32)).to(dev)
-        x0 = torch.from_numpy(x0.astype(np.int32)).to(dev)
-        got = gather2d.gather_windows_2d(src, y0, x0, sh=sh, sw=sw)
-        want = gather2d.gather_windows_2d_plain(src, y0, x0, sh=sh, sw=sw)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"gather {n}x{sh}x{sw} not bit-exact")
-
-        def library():
-            yc = y0.long().clamp(0, h - sh)
-            xc = x0.long().clamp(0, w - sw)
-            return src.unfold(0, sh, 1).unfold(1, sw, 1)[yc, xc]
-
-        check(torch.equal(library(), want), "gather library call differs")
-        nbytes = (h * w + n * sh * sw + 2 * n) * 4
-        rec = dict(
-            shape=[n, sh, sw], max_abs_err=0.0,
-            ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d(
-                src, y0, x0, sh=sh, sw=sw), reps),
-            plain_ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d_plain(
-                src, y0, x0, sh=sh, sw=sw), reps),
-            library_ms=cuda_ms(torch, library, reps),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            bytes=nbytes, clamped=int(bad.sum()))
-        records["gather"].append(rec)
-        log(json.dumps({"kernel": "gather_windows_2d", **rec}))
-
+    records = {"gather": [gather_case(torch, src, n, sh, sw, rng, reps)
+                          for n, sh, sw, src in (
+                              (30000, 32, 32, img), (30000, 33, 33, img),
+                              (30000, 40, 40, img), (940, 48, 48, img),
+                              (epipolar_windows(ot), side, side, simg))]}
     # the main path's D=2 block and D=6 correction, and the stereo path's
     # second-order ones (10,000 POIs; the correction cap max(256, n/32))
-    for n, d in ((30000, 2), (940, 6), (STEREO_POIS, 2),
-                 (max(256, STEREO_POIS // 32), 6)):
-        s = 33
-        wl = 4 + 2 * d
-        eblk = torch.from_numpy(np.round(rng.uniform(
-            0, 255, (n, s + wl - 1, s + wl - 1))).astype(np.float32)).to(dev)
-        dy = rng.integers(0, 2 * d + 1, (n, s, s))
-        dx = rng.integers(0, 2 * d + 1, (n, s, s))
-        for a in (dy, dx):
-            bad = rng.uniform(size=a.shape) < 0.05
-            a[bad] = rng.choice([-1, 2 * d + 1, -9, 40], bad.sum())
-        dy = torch.from_numpy(dy.astype(np.int32)).to(dev)
-        dx = torch.from_numpy(dx.astype(np.int32)).to(dev)
-        fy = torch.from_numpy(rng.uniform(0, 1, (n, s, s)).astype(
-            np.float32)).to(dev)
-        fx = torch.from_numpy(rng.uniform(0, 1, (n, s, s)).astype(
-            np.float32)).to(dev)
-        args = (eblk, dy, dx, fy, fx)
-        got = lattice2d.lattice_eval_2d(*args, d_wobble=d)
-        want = lattice2d.lattice_eval_2d_plain(*args, d_wobble=d)
-        torch.cuda.synchronize()
-        oor = (dy < 0) | (dy > 2 * d) | (dx < 0) | (dx > 2 * d)
-        check(bool((got[oor] == 0).all()), f"lattice D={d}: nonzero out of "
-              "range")
-        err = float((got - want).abs().max())
-        tol = 1e-6 * float(eblk.abs().max())
-        check(err <= tol, f"lattice D={d}: max|err| {err} > {tol}")
-        in_range = int((~oor).sum())
-        nbytes = (eblk.numel() + 5 * n * s * s) * 4
-        flops = in_range * LATTICE_FLOPS
-        tb = nbytes / HBM_BYTES_PER_S * 1e3
-        tf = flops / F32_FLOP_PER_S * 1e3
-        rec = dict(
-            shape=[n, s, s], d_wobble=d, max_abs_err=err, tolerance=tol,
-            ms=cuda_ms(torch, lambda: lattice2d.lattice_eval_2d(
-                *args, d_wobble=d), reps),
-            plain_ms=cuda_ms(torch, lambda: lattice2d.lattice_eval_2d_plain(
-                *args, d_wobble=d), reps),
-            library_ms=None, bound_ms=max(tb, tf),
-            bound_by="bytes" if tb >= tf else "operations",
-            bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
-        records["lattice"].append(rec)
-        log(json.dumps({"kernel": "lattice_eval_2d", **rec}))
+    records["lattice"] = [
+        lattice_case(torch, dev, n, 33, d, rng, reps)
+        for n, d in ((30000, 2), (940, 6), (STEREO_POIS, 2),
+                     (max(256, STEREO_POIS // 32), 6))]
     records["lattice3d"] = []
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
     for n, s in lattice3d_chunks(torch):
@@ -716,7 +791,7 @@ def phase_main(torch, ot, ref, tar, center, tmpdir):
           and abs(res["mean_eyy"] - STRAIN) < 1e-3,
           f"strain {res['mean_exx']}, {res['mean_eyy']} vs {STRAIN}")
     check(n_lines == 30001, f"csv lines {n_lines}")
-    return res, launches
+    return res, launches, ot.table_to_numpy(refined)
 
 
 def phase_cpu_agreement(torch, ot, ref, tar):
@@ -1648,6 +1723,310 @@ def phase_stereo(torch, ot, views, pts, truth, scene, tmpdir):
     return res, launches
 
 
+# --- the planar example suite (examples/dic_2d.py) ---------------------------
+
+
+def dic2d_launch_shapes(ot):
+    """The kernel shapes the planar suite launches at the reference sizes,
+    from the port's own rules: each refining workload's grid is one chunk
+    (``base.budget_chunk``); a windowed refine gathers its subsets
+    (2r+1)^2, its D=2 blocks (2r+7)^2 and correction blocks (2r+15)^2 for
+    the correction cap max(256, n/32), and evaluates D=2 at the chunk and,
+    in IC-GN, at its compacted tail ceil(n/4) past ``_COMPACT_MIN``, and
+    D=6 at the cap; FFTCC2D gathers (2r)^2 windows.  The self-adaptive
+    refine launches no kernel (plain subsets, the global LUT).  Returns
+    ({(n, sh, sw)}, {(n, s, s, D)})."""
+    from opencorr_tpu_torch.examples import dic_2d
+    from opencorr_tpu_torch.models import base
+    from opencorr_tpu_torch.ops import icgn
+
+    gathers, lattices = set(), set()
+    for wl in ("fftcc_icgn1", "fftcc_iclm1", "fftcc_nr1", "sift_icgn2",
+               "sift_iclm2"):
+        _, nx, ny, _ = dic_2d.GRIDS[wl]
+        r = dic_2d.RADIUS[wl]
+        chunk = base.budget_chunk(ot.ICGN2D1(r, r, device="cpu").chunk_size,
+                                  r, r)
+        n = nx * ny
+        check(n <= chunk, f"{wl}: {n} POIs are more than one chunk")
+        s = 2 * r + 1
+        cap = min(n, max(256, n // 32))
+        gathers |= {(n, s, s), (n, s + 7, s + 7), (cap, s + 15, s + 15)}
+        lattices |= {(n, s, s, 2), (cap, s, s, 6)}
+        if wl.startswith("fftcc"):
+            gathers.add((n, 2 * r, 2 * r))
+        if "icgn" in wl and n >= icgn._COMPACT_MIN:
+            lattices.add((-(-n // 4), s, s, 2))
+    return gathers, lattices
+
+
+def phase_kernels_dic2d(torch, ot, dev, rng, reps, done):
+    """Kernels 1 and 2 ``==`` their plain versions at every shape of the
+    planar suite that ``done`` (the shapes phase 2 already checked) lacks,
+    timed as phase 2 times them; every gather reads an image of the
+    rotation pair's size.  Returns the records."""
+    gathers, lattices = dic2d_launch_shapes(ot)
+    rimg = torch.from_numpy(np.round(rng.uniform(0, 255, ROT_SIZE)).astype(
+        np.float32)).to(dev)
+    records = {"gather": [gather_case(torch, rimg, n, sh, sw, rng, reps,
+                                      slice="dic2d")
+                          for n, sh, sw in sorted(gathers - done["gather"])],
+               "lattice": []}
+    for n, s, _, d in sorted(lattices - done["lattice"]):
+        records["lattice"].append(lattice_case(
+            torch, dev, n, s, d, rng, reps, exact=True, slice="dic2d"))
+        torch.cuda.empty_cache()
+    return records
+
+
+def warped_pair(shape, a, t, seed):
+    """8-bit (ref, tar, fwd) of shape [H, W]: one Gaussian-filtered noise
+    field (sigma 1.5, 128 +- 28 grey levels, as phase 3's), the target
+    showing the reference's texture at x' = A (X - c) + c + t (c the image
+    centre), bicubic; ``fwd`` maps reference points [N, 2] to the
+    target."""
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    h, w = shape
+    pad = 24
+    rng = np.random.default_rng(seed)
+    base = gaussian_filter(rng.standard_normal((h + 2 * pad, w + 2 * pad)),
+                           1.5)
+    base = base / base.std() * 28.0 + 128.0
+    ref = np.clip(np.round(base[pad:pad + h, pad:pad + w]), 0, 255)
+    c = np.array([(w - 1) / 2.0, (h - 1) / 2.0])
+    a = np.asarray(a, np.float64)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    q = (np.stack([xx - c[0] - t[0], yy - c[1] - t[1]], -1)
+         @ np.linalg.inv(a).T + c)
+    tar = map_coordinates(base, [q[..., 1] + pad, q[..., 0] + pad], order=3,
+                          mode="nearest")
+    tar = np.clip(np.round(tar), 0, 255)
+
+    def fwd(pts):
+        return (np.asarray(pts, np.float64) - c) @ a.T + c + np.asarray(t)
+
+    return ref.astype(np.uint8), tar.astype(np.uint8), fwd
+
+
+def dic2d_inputs(ref, tar, center):
+    """The suite's three pairs: phase 3's for the oht_cfrp workloads, the
+    rotation pair and the utn-size stretched pair, each (ref, tar, fwd)."""
+    def main_fwd(pts):
+        pts = np.asarray(pts, np.float64)
+        u, v = true_uv(pts[:, 0], pts[:, 1], center)
+        return pts + np.stack([u, v], -1)
+
+    th = np.deg2rad(ROT_DEG)
+    rot = [[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]
+    return {"main": (ref, tar, main_fwd),
+            "rotation": warped_pair(ROT_SIZE, rot, ROT_SHIFT, seed=4),
+            "utn": warped_pair(UTN_SIZE, [[1.0 + UTN_STRETCH, 0.0],
+                                          [0.0, 1.0]], UTN_SHIFT, seed=5)}
+
+
+DIC2D_PAIR = {"fftcc_icgn1": "main", "fftcc_iclm1": "main",
+              "fftcc_nr1": "main", "sift_icgn2": "rotation",
+              "sift_iclm2": "rotation", "self_adaptive": "utn"}
+
+
+def uv_error(t, fwd):
+    """Converged fraction (ZNCC > 0.9) and mean |u - u_true|, |v - v_true|
+    over the converged POIs of a numpy table, at its (moved) positions."""
+    zn = t["r"][:, 2]
+    conv = zn > 0.9
+    xy = np.stack([t["x"], t["y"]], -1).astype(np.float64)
+    truth = fwd(xy) - xy
+    du = np.abs(t["p"][conv, 0] - truth[conv, 0])
+    dv = np.abs(t["p"][conv, 6] - truth[conv, 1])
+    return (float(conv.mean()), float(du.mean()) if conv.any() else None,
+            float(dv.mean()) if conv.any() else None)
+
+
+def phase_dic2d_cpu_agreement(torch, ot, pairs):
+    """ICLM2D1, NR2D1, ICLM2D2 and the self-adaptive ICGN2D1 and ICLM2D1 on
+    cuda and on cpu from the same seeds: every 40th POI of the oht grid
+    (FFTCC on the cpu, every 8th seed moved 3 px: the D=6 correction),
+    every 150th of the rotation grid and every 128th of the utn grid
+    seeded from the true field (u, v rounded), the utn POIs with radii
+    10-25.  FFTCC's seeds of every 8th POI are moved 3 px for ICLM2D1 (the
+    D=6 correction).  Codes equal, u/v within 1e-3 px."""
+    from opencorr_tpu_torch.examples import dic_2d
+
+    devices = card, host = ("cuda", "cpu")
+    res = {}
+
+    def grid_pts(wl, step):
+        g = ot.poi_grid_2d(*dic_2d.GRIDS[wl], device="cpu")
+        return g.x.numpy()[::step], g.y.numpy()[::step]
+
+    def seeds_from_truth(x, y, fwd, sr=None):
+        xy = np.stack([x, y], -1).astype(np.float64)
+        uv = np.round(fwd(xy) - xy)
+        n = len(x)
+        p = np.zeros((n, 12), np.float32)
+        p[:, 0], p[:, 6] = uv[:, 0], uv[:, 1]
+        sr = np.zeros((n, 2), np.float32) if sr is None else sr
+        return (x, y, p, np.zeros((n, 6), np.float32),
+                np.zeros((n, 3), np.float32), sr)
+
+    ref, tar, _ = pairs["main"]
+    x, y = grid_pts("fftcc_icgn1", 40)
+    f = ot.FFTCC2D(16, 16, device=host)
+    f.set_images(ref, tar)
+    s = ot.table_to_numpy(f.compute(ot.new_table_2d(x, y, device=host)))
+    main_seed = tuple(s[k] for k in ("x", "y", "p", "r", "e", "sr"))
+    moved = tuple(a.copy() for a in main_seed)
+    moved[2][::8, 0] += 3.0
+    rref, rtar, rfwd = pairs["rotation"]
+    rx, ry = grid_pts("sift_icgn2", 150)
+    ang = np.deg2rad(ROT_DEG)
+    rot_seed = seeds_from_truth(rx, ry, rfwd)
+    rot_seed[2][:, [1, 2, 7, 8]] = [np.cos(ang) - 1, -np.sin(ang),
+                                    np.sin(ang), np.cos(ang) - 1]
+    uref, utar, ufwd = pairs["utn"]
+    ux, uy = grid_pts("self_adaptive", 128)
+    sr = np.random.default_rng(9).integers(10, 26, (len(ux), 2)).astype(
+        np.float32)
+    utn_seed = seeds_from_truth(ux, uy, ufwd, sr)
+    cases = (("iclm2d1", ot.ICLM2D1, 16, (ref, tar), moved, False),
+             ("nr2d1", ot.NR2D1, 16, (ref, tar), main_seed, False),
+             ("iclm2d2", ot.ICLM2D2, 12, (rref, rtar), rot_seed, False),
+             ("icgn2d1_adaptive", ot.ICGN2D1, 30, (uref, utar), utn_seed,
+              True),
+             ("iclm2d1_adaptive", ot.ICLM2D1, 30, (uref, utar), utn_seed,
+              True))
+    for name, cls, r, imgs, seed, adaptive in cases:
+        outs, branches = {}, {}
+        for dev in devices:
+            m = cls(r, r, 0.001, 10, device=dev)
+            m.set_images(*imgs)
+            m.prepare()
+            m.set_self_adaptive(adaptive)
+            outs[dev] = ot.table_to_numpy(m.compute(ot.table_from_numpy(
+                *seed, device=dev)))
+            branches[dev] = dict(m.stats)
+        zc, zp = outs[card]["r"][:, 2], outs[host]["r"][:, 2]
+        codes = np.array_equal(np.where(zc < 0, zc, 1),
+                               np.where(zp < 0, zp, 1))
+        both = (zc > 0) & (zp > 0)
+        duv = np.abs(outs[card]["p"][both][:, [0, 6]]
+                     - outs[host]["p"][both][:, [0, 6]])
+        res[name] = dict(pois=len(zc), codes_equal=codes,
+                         converged=int(both.sum()),
+                         max_abs_duv=float(duv.max()) if both.any() else None,
+                         branches=branches)
+    log(json.dumps({"dic2d_cuda_vs_cpu": res}))
+    for name, r in res.items():
+        check(r["codes_equal"], f"{name}: codes differ between cuda and cpu")
+        check(r["converged"] > 0, f"{name}: no POI converged")
+        check(r["max_abs_duv"] <= 1e-3, f"{name}: u/v differ by "
+              f"{r['max_abs_duv']}")
+    check(res["iclm2d1"]["branches"][card].get("correct", 0) > 0,
+          "ICLM2D1: the D=6 correction branch did not run on cuda")
+    return res
+
+
+def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
+    """The seven workloads of ``examples/dic_2d.run`` on the card at the
+    reference's sizes, after a warm-up of each on a small grid; kernels 1
+    and 2 counted over the whole suite and timed per launch per workload.
+    Checks every workload's gates, the fftcc_icgn1 table against phase
+    3's, and that every launch shape is one phase 2 checked."""
+    from opencorr_tpu_torch.examples import dic_2d
+    from opencorr_tpu_torch.io import native
+    from opencorr_tpu_torch.ops import gather2d, lattice2d
+
+    check(native.available(), "the native table codec did not load")
+    small = {"main": ((30, 30), 20, 20, 2), "rotation": ((50, 50), 20, 20, 2),
+             "utn": ((50, 50), 20, 20, 5)}
+    warm = os.path.join(tmpdir, "warm")
+    for wl, pair in DIC2D_PAIR.items():
+        dic_2d.run(wl, *pairs[pair][:2], warm, "cuda", grid=small[pair])
+    torch.cuda.synchronize()
+    wrappers = (gather2d.gather_windows_2d, lattice2d.lattice_eval_2d)
+    for fn in wrappers:
+        fn.launches = 0
+    prefix = os.path.join(tmpdir, "dic2d")
+    results = {}
+    tables = {}
+    for wl in dic_2d.WORKLOADS:
+        for fn in wrappers:
+            fn.events = []
+        info = {}
+        t0 = time.perf_counter()
+        if wl == "strain":
+            out, timer = dic_2d.run(wl, f"{prefix}_fftcc_icgn1.csv", None,
+                                    prefix, "cuda", stats=info)
+        else:
+            out, timer = dic_2d.run(wl, *pairs[DIC2D_PAIR[wl]][:2], prefix,
+                                    "cuda", stats=info)
+        wall_s = time.perf_counter() - t0
+        t = ot.table_to_numpy(out)
+        tables[wl] = t
+        rec = dict(pois=int(out.n), wall_s=wall_s,
+                   stage_s=dict(zip(timer.names, timer.seconds)),
+                   kernel_event_ms={fn.__name__: event_ms(fn)
+                                    for fn in wrappers},
+                   **{k: v for k, v in info.items()
+                      if k != "sift2d_octaves"})
+        if wl != "strain":
+            conv, du, dv = uv_error(t, pairs[DIC2D_PAIR[wl]][2])
+            rec.update(converged_frac=conv, mean_abs_du=du, mean_abs_dv=dv,
+                       codes={str(c): int((t["r"][:, 2] == c).sum())
+                              for c in (-1.0, -2.0, -3.0, -4.0, -5.0)})
+        if wl in ("strain", "self_adaptive"):
+            ok = t["r"][:, 2] > 0.9
+            rec.update(mean_exx=float(t["e"][ok, 0].mean()),
+                       mean_eyy=float(t["e"][ok, 1].mean()),
+                       strain_computed=int((t["e"] != 0).any(1).sum()))
+        for st in info.get("sift2d_octaves", []):
+            log(json.dumps({"dic2d_sift2d_octave": dict(workload=wl, **st)}))
+        log(json.dumps({"dic2d": {wl: rec}}))
+        results[wl] = rec
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(json.dumps({"dic2d_launches": launches}))
+
+    for name, v in launches.items():
+        check(v > 0, f"the planar suite launched {name} no time")
+    gathers, lattices = checked
+    for wl, rec in results.items():
+        km = rec["kernel_event_ms"]
+        got_g = {tuple(int(v) for v in s.split("x"))
+                 for s in km["gather_windows_2d"]["by_shape"]}
+        got_l = {tuple(int(v) for v in s.split("x"))
+                 for s in km["lattice_eval_2d"]["by_shape"]}
+        check(got_g <= gathers, f"{wl}: gathers {sorted(got_g - gathers)} "
+              "that phase 2 did not check")
+        check(got_l <= lattices, f"{wl}: lattice evals "
+              f"{sorted(got_l - lattices)} that phase 2 did not check")
+        check(rec.get("writer") == "native", f"{wl}: table writer "
+              f"{rec.get('writer')}")
+        if wl == "strain":
+            continue
+        check(rec["converged_frac"] >= 0.9,
+              f"{wl}: converged {rec['converged_frac']}")
+        check(rec["mean_abs_du"] < 0.01 and rec["mean_abs_dv"] < 0.01,
+              f"{wl}: displacement error {rec['mean_abs_du']}, "
+              f"{rec['mean_abs_dv']}")
+    sr = tables["self_adaptive"]["sr"]
+    r_max = results["self_adaptive"]["r_max"]
+    check(r_max == int(sr.max()) and (sr >= 10).all(),
+          f"self_adaptive radii {sr.min()}..{sr.max()}, r_max {r_max}")
+    check(abs(results["self_adaptive"]["mean_exx"] - UTN_STRETCH) < 1e-3,
+          f"self_adaptive exx {results['self_adaptive']['mean_exx']}")
+    st = results["strain"]
+    check(abs(st["mean_exx"] - STRAIN) < 1e-3
+          and abs(st["mean_eyy"] - STRAIN) < 1e-3,
+          f"strain {st['mean_exx']}, {st['mean_eyy']} vs {STRAIN}")
+    ex = tables["fftcc_icgn1"]
+    same = all(np.array_equal(ex[f], main_table[f], equal_nan=True)
+               for f in ("x", "y", "p", "r", "sr"))
+    log(json.dumps({"dic2d_fftcc_icgn1_equals_phase3": same}))
+    check(same, "the example's fftcc_icgn1 table differs from phase 3's")
+    return results, launches
+
+
 def main() -> int:
     import torch
 
@@ -1691,12 +2070,21 @@ def main() -> int:
     records = phase_kernels(torch, ot, img, rng, reps=20)
     lattice_shape = records["lattice3d"][0]["shape"]  # one DVC chunk
     records["desc"] = phase_desc3d(torch, ot, rng, reps=10)
+    # ... and kernels 1 and 2 at the planar suite's shapes not yet checked
+    done = {"gather": {tuple(r["shape"]) for r in records["gather"]},
+            "lattice": {(*r["shape"], r["d_wobble"])
+                        for r in records["lattice"]}}
+    dic_records = phase_kernels_dic2d(torch, ot, img.device, rng, 20, done)
+    for k in ("gather", "lattice"):
+        records[k] += dic_records[k]
+    checked = ({tuple(r["shape"]) for r in records["gather"]},
+               {(*r["shape"], r["d_wobble"]) for r in records["lattice"]})
 
     # phase 3: the main path
     with tempfile.TemporaryDirectory() as tmpdir:
-        main_res, launches = phase_main(torch, ot, ot.Image2D.from_array(ref),
-                                        ot.Image2D.from_array(tar), center,
-                                        tmpdir)
+        main_res, launches, main_table = phase_main(
+            torch, ot, ot.Image2D.from_array(ref), ot.Image2D.from_array(tar),
+            center, tmpdir)
 
     # phase 4: cuda against the plain versions on the cpu
     phase_cpu_agreement(torch, ot, ot.Image2D.from_array(ref),
@@ -1737,11 +2125,27 @@ def main() -> int:
         stereo_res, stereo_launches = phase_stereo(torch, ot, views, spts,
                                                    struth, scene, tmpdir)
     by_path["stereo"] = dict(stereo_launches)
+    del views, spts, struth, scene
+    torch.cuda.empty_cache()
 
-    # phase 11: the records
+    # phase 11: the planar refiners on cuda against the cpu
+    t0 = time.perf_counter()
+    pairs = dic2d_inputs(ref, tar, center)
+    log(json.dumps({"dic2d_pairs_s": time.perf_counter() - t0}))
+    phase_dic2d_cpu_agreement(torch, ot, pairs)
+
+    # phase 12: the planar example suite at the reference's sizes
+    with tempfile.TemporaryDirectory() as tmpdir:
+        dic_res, dic_launches = phase_dic2d(torch, ot, pairs, main_table,
+                                            checked, tmpdir)
+    by_path["dic2d"] = dict(dic_launches)
+
+    # phase 13: the records
     path_ms = {"dvc": dvc_res["kernel_event_ms"],
                "sift": sift_res["kernel_event_ms"],
-               "stereo": stereo_res["kernel_event_ms"]}
+               "stereo": stereo_res["kernel_event_ms"],
+               "dic2d": merge_event_ms([r["kernel_event_ms"]
+                                        for r in dic_res.values()])}
     def summary(name, route, source, replaces, recs, ref_shape, **pick):
         r = next(x for x in recs if x["shape"] == ref_shape
                  and all(x.get(k) == v for k, v in pick.items()))
@@ -1779,6 +2183,8 @@ def main() -> int:
                     "dvc_stage_ms": dvc_res["stage_ms"],
                     "sift_stage_ms": sift_res["stage_ms"],
                     "stereo_stage_ms": stereo_res["stage_ms"],
+                    "dic2d_stage_s": {wl: r["stage_s"]
+                                      for wl, r in dic_res.items()},
                     "total_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -8,9 +8,12 @@ the caller passes ``device="cpu"``; without a CUDA device they raise.
 
 Ported so far: the flagship 2D path FFTCC2D -> ICGN2D1 -> Strain, the
 DVC path FFTCC3D -> ICGN3D1 -> Strain, the feature-seeded DVC path
-SIFT3D -> FeatureAffine3D -> ICGN3D1, and stereo 3D-DIC (EpipolarSearch ->
+SIFT3D -> FeatureAffine3D -> ICGN3D1, stereo 3D-DIC (EpipolarSearch ->
 ICGN2D2, SIFT2D -> FeatureAffine2D -> ICGN2D1, triangulation, stereo
-strain; ``examples/stereo_3d_dic_epipolar_sift.py``).
+strain; ``examples/stereo_3d_dic_epipolar_sift.py``), and the planar
+example suite (``examples/dic_2d.py``): the refiners ICGN2D1/2, ICLM2D1/2
+and NR2D1, self-adaptive subsets (FeatureAffine2D, ICGN2D1/2, ICLM2D1/2),
+``utils/timing.StageTimer`` and the native table codec.
 """
 
 from .utils import precision as _precision  # noqa: F401  (pins full f32)
@@ -32,6 +35,8 @@ from .data.poi import (
 from .io.calibration_io import load_calibration, save_calibration
 from .io.table import (
     load_matrix_bin_3d,
+    load_points_2d,
+    load_points_3d,
     load_table_2d,
     load_table_2ds,
     load_table_3d,
@@ -40,6 +45,7 @@ from .io.table import (
     save_map_2ds,
     save_map_3d,
     save_matrix_bin_3d,
+    save_points_2d,
     save_table_2d,
     save_table_2ds,
     save_table_3d,
@@ -50,11 +56,14 @@ from .models.feature_affine import FeatureAffine2D, FeatureAffine3D, \
     RansacConfig
 from .models.fftcc import FFTCC2D, FFTCC3D
 from .models.icgn import ICGN2D1, ICGN2D2, ICGN3D1
+from .models.iclm import ICLM2D1, ICLM2D2
+from .models.nr import NR2D1
 from .models.sift2d import SIFT2D, Sift2dConfig
 from .models.sift3d import SIFT3D, Sift3dConfig
 from .models.stereovision import Stereovision
 from .models.strain import Strain
 from .utils.precision import resolve_device
+from .utils.timing import StageTimer
 
 __all__ = [
     "Image2D",
@@ -74,6 +83,8 @@ __all__ = [
     "load_calibration",
     "save_calibration",
     "load_matrix_bin_3d",
+    "load_points_2d",
+    "load_points_3d",
     "load_table_2d",
     "load_table_2ds",
     "load_table_3d",
@@ -82,6 +93,7 @@ __all__ = [
     "save_map_2ds",
     "save_map_3d",
     "save_matrix_bin_3d",
+    "save_points_2d",
     "save_table_2d",
     "save_table_2ds",
     "save_table_3d",
@@ -94,6 +106,9 @@ __all__ = [
     "ICGN2D1",
     "ICGN2D2",
     "ICGN3D1",
+    "ICLM2D1",
+    "ICLM2D2",
+    "NR2D1",
     "FeatureAffine2D",
     "FeatureAffine3D",
     "RansacConfig",
@@ -104,6 +119,7 @@ __all__ = [
     "Stereovision",
     "Strain",
     "resolve_device",
+    "StageTimer",
 ]
 
 __version__ = "0.1.0"

@@ -11,9 +11,12 @@ Schemas mirror ``oc_io.cpp`` so the reference's files load unmodified:
 * stereo result table (``saveTable2DS``, oc_io.cpp:588-669) and value maps
   (``saveMap2DS``, oc_io.cpp:671-826);
 * DVC result table (``saveTable3D``, oc_io.cpp:1004-1089), 3D value maps
-  (``saveMap3D``) and the binary matrix checkpoint (``saveMatrixBin``).
+  (``saveMap3D``) and the binary matrix checkpoint (``saveMatrixBin``);
+* headerless point lists (``loadPoint2D``/``savePoint2D``/``loadPoint3D``).
 
-All writers format like C++ ``std::fixed`` with 8 decimals.
+All writers format like C++ ``std::fixed`` with 8 decimals.  The result
+tables are written and read through the native codec (``io/native.py``)
+where it builds, else in Python.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 
 from ..data import poi as poi_mod
 from ..utils.precision import DeviceLike
+from . import native
 
 _F = "%.8f"
 
@@ -68,6 +72,26 @@ def load_table_2d(path: str, delimiter: str = ",",
     if raw.shape[1] >= 15:
         sr[:] = raw[:, 13:15]
     return poi_mod.table_from_numpy(raw[:, 0], raw[:, 1], p, r, e, sr, device)
+
+
+def load_points_2d(path: str, delimiter: str = ",") -> np.ndarray:
+    """``loadPoint2D`` (oc_io.cpp:66-118): no header, x,y per line."""
+    return np.atleast_2d(
+        np.genfromtxt(path, delimiter=delimiter, dtype=np.float32))
+
+
+def save_points_2d(path: str, points: np.ndarray,
+                   delimiter: str = ",") -> None:
+    """``savePoint2D`` (oc_io.cpp:120-140)."""
+    with open(path, "w") as f:
+        for p in np.asarray(points):
+            f.write(_fmt_row(p[:2], delimiter) + "\n")
+
+
+def load_points_3d(path: str, delimiter: str = ",") -> np.ndarray:
+    """``loadPoint3D`` (oc_io.cpp:828+): no header, x,y,z per line."""
+    return np.atleast_2d(
+        np.genfromtxt(path, delimiter=delimiter, dtype=np.float32))
 
 
 def save_deformation_table_2d(path: str, table: poi_mod.POITable2D,
@@ -263,18 +287,27 @@ def load_matrix_bin_3d(path: str):
 
 
 def _write_csv(path: str, cols, data: np.ndarray, delim: str) -> None:
+    """Through the native codec (io/native.py), else row by row in
+    Python; both write the same text for finite values."""
+    header = delim.join(cols) + delim
+    data = np.asarray(data, np.float32)
+    if native.write_table(path, header, data, delim):
+        return
     buf = io.StringIO()
-    buf.write(delim.join(cols) + delim + "\n")
-    for row in np.asarray(data, np.float32):
+    buf.write(header + "\n")
+    for row in data:
         buf.write(_fmt_row(row, delim) + "\n")
     with open(path, "w") as f:
         f.write(buf.getvalue())
 
 
 def _read_csv(path: str, delimiter: str) -> np.ndarray:
-    raw = np.genfromtxt(path, delimiter=delimiter, skip_header=1,
-                        dtype=np.float32)
-    raw = np.atleast_2d(raw)
-    if np.isnan(raw[:, -1]).all():  # the trailing delimiter's empty column
-        raw = raw[:, :-1]
+    """A numeric table with a header row: the native codec, else numpy."""
+    raw = native.read_table(path, skip_header=True, delimiter=delimiter)
+    if raw is None:
+        raw = np.genfromtxt(path, delimiter=delimiter, skip_header=1,
+                            dtype=np.float32)
+        raw = np.atleast_2d(raw)
+        if np.isnan(raw[:, -1]).all():  # the trailing delimiter's column
+            raw = raw[:, :-1]
     return raw

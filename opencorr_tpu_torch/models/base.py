@@ -89,6 +89,7 @@ class Module2D:
         self.subset_radius_y = int(subset_radius_y)
         self.ref_img: Optional[torch.Tensor] = None
         self.tar_img: Optional[torch.Tensor] = None
+        self.self_adaptive = False
 
     def _upload(self, img) -> torch.Tensor:
         return upload(img, self.device)
@@ -102,9 +103,9 @@ class Module2D:
         self.subset_radius_y = int(ry)
 
     def set_self_adaptive(self, flag: bool) -> None:
-        if flag:
-            raise NotImplementedError(
-                "self-adaptive subsets are not ported yet (a later slice)")
+        """Per-POI subset radii from the table's ``sr`` (the refiners that
+        support them, ICGN2D1/2 and ICLM2D1/2)."""
+        self.self_adaptive = bool(flag)
 
     def _check_table(self, table) -> None:
         if not isinstance(table, self.table_type):

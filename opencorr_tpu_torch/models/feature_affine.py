@@ -199,6 +199,10 @@ class _FeatureAffine:
         """The guess for every POI of ``table``.  ``draws`` [D+1, N, trials]
         integer RANSAC draws in [0, 2^30) replace the module's own
         (``ops.feature_affine.ransac_draws(seed, N, trials, D+1)``)."""
+        self._ready(table)
+        return self._run(table, *self._candidates(table), draws)
+
+    def _ready(self, table) -> None:
         if self.ref_kp is None:
             raise RuntimeError("call set_keypoint_pair() first")
         if not isinstance(table, self.table_type):
@@ -210,8 +214,11 @@ class _FeatureAffine:
                              f"{self.device}")
         if self._tree is None:
             self.prepare()
+
+    def _run(self, table, idx, cand, enough, draws):
+        """RANSAC over the candidate keypoints ``idx``/``cand`` [N, k] of
+        every POI, chunked."""
         tr, sm = self.ransac.trial_number, self.ransac.sample_number
-        idx, cand, enough = self._candidates(table)
         shape = (self.dim + 1, table.n, tr)
         if draws is None:
             draws = fa_ops.ransac_draws(self.seed, table.n, tr, self.dim + 1)
@@ -233,8 +240,9 @@ class FeatureAffine2D(_FeatureAffine):
     """Per-POI 6-parameter guess from matched keypoints
     (oc_feature_affine.cpp:118-342).  Defaults per the reference's
     constructor (:34-47): search radius |(rx, ry)|, at least 7 neighbours,
-    20 trials of 3 samples, 1.5 px error threshold.  Self-adaptive subsets
-    (:128-179) are not ported yet."""
+    20 trials of 3 samples, 1.5 px error threshold.  After
+    ``set_self_adaptive(True)`` each POI also gets the subset that covers
+    its ``subset_feature_min`` nearest keypoints (:128-179)."""
 
     dim = 2
     table_type = poi_mod.POITable2D
@@ -248,16 +256,63 @@ class FeatureAffine2D(_FeatureAffine):
                          k_cap, seed, chunk_size, neighbor_backend, device)
         self.subset_feature_min = 14  # self-adaptive mode (:46)
         self.subset_radius_min = 10  # (:47)
+        self.self_adaptive = False
 
     def set_subset_adjustment(self, feature_min: int, radius_min: int):
         self.subset_feature_min = int(feature_min)
         self.subset_radius_min = int(radius_min)
 
     def set_self_adaptive(self, flag: bool) -> None:
-        if flag:
-            raise NotImplementedError(
-                "FeatureAffine2D: self-adaptive subsets are not ported yet "
-                "(a later slice)")
+        self.self_adaptive = bool(flag)
+
+    def compute(self, table: poi_mod.POITable2D,
+                draws: Optional[torch.Tensor] = None) -> poi_mod.POITable2D:
+        if not self.self_adaptive:
+            return super().compute(table, draws)
+        self._ready(table)
+        t, knn = self._adapt_subsets(table)
+        n, k = knn.shape
+        to = lambda a: torch.from_numpy(a).to(self.device)
+        return self._run(t, to(knn.astype(np.int32)),
+                         to(np.ones((n, k), bool)),
+                         to(np.full(n, k >= self.ransac.sample_number)),
+                         draws)
+
+    def _adapt_subsets(self, table: poi_mod.POITable2D):
+        """The self-adaptive subsets (oc_feature_affine.cpp:128-179), on
+        the host: each POI's ``subset_feature_min`` nearest keypoints; a
+        POI outside their bounding box moves to its centre; the radii
+        cover the box from the POI, truncated to int as the reference
+        does, and at least ``subset_radius_min``.  Returns (the table with
+        the moved x, y and the radii in ``sr``, the KNN indices [N, k])."""
+        xs, ys = (a.copy() for a in table.xy_numpy())
+        n = table.n
+        k = min(self.subset_feature_min, len(self.ref_kp))
+        _, knn = self._tree.query(np.stack([xs, ys], -1), k=k, workers=-1)
+        knn = knn.reshape(n, k)
+        kx = self.ref_kp[knn, 0]
+        ky = self.ref_kp[knn, 1]
+        x_min, x_max = kx.min(1), kx.max(1)
+        y_min, y_max = ky.min(1), ky.max(1)
+        half = np.float32(0.5)
+        inside = (xs >= x_min) & (xs <= x_max) & (ys >= y_min) & (ys <= y_max)
+        srx = np.where(
+            inside,
+            np.maximum(np.abs(x_max - xs), np.abs(xs - x_min)).astype(np.int32),
+            (half * (x_max - x_min)).astype(np.int32))
+        sry = np.where(
+            inside,
+            np.maximum(np.abs(y_max - ys), np.abs(ys - y_min)).astype(np.int32),
+            (half * (y_max - y_min)).astype(np.int32))
+        xs = np.where(inside, xs, (half * (x_max + x_min)).astype(np.int32))
+        ys = np.where(inside, ys, (half * (y_max + y_min)).astype(np.int32))
+        sr = np.stack([np.maximum(srx, self.subset_radius_min),
+                       np.maximum(sry, self.subset_radius_min)], -1)
+        to = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, np.float32)).to(self.device)
+        t = table.replace(x=to(xs), y=to(ys), sr=to(sr))
+        t.host_xy = (xs.astype(np.float32), ys.astype(np.float32))
+        return t, knn
 
     def _ransac(self, ref_kp, tar_kp, t, idx, cand, enough, draws, trials,
                 samples):

@@ -25,16 +25,32 @@ def _workset_budget(device: torch.device) -> int:
     return _CPU_WORKSET_BUDGET
 
 
-class ICGN2D1(base.Module2D):
-    """First-order IC-GN (oc_icgn.cpp:144-351).
+def merge_2d(t: poi_mod.POITable2D, outs, radii=None) -> poi_mod.POITable2D:
+    """A 2D refiner's outputs (p_out, u0, v0, zncc, iteration,
+    convergence, computed) written into ``t``: the code everywhere, the
+    rest where computed; ``radii`` (rx, ry), when given, into ``sr`` where
+    computed (a self-adaptive refine keeps the table's radii)."""
+    p_out, u0, v0, zncc, it, dpn, computed = outs
+    r = t.r.clone()
+    r[:, poi_mod.R_ZNCC] = zncc
+    for col, val in ((poi_mod.R_U0, u0), (poi_mod.R_V0, v0),
+                     (poi_mod.R_ITER, it), (poi_mod.R_CONV, dpn)):
+        r[:, col] = torch.where(computed, val, t.r[:, col])
+    if radii is None:
+        return t.replace(p=p_out, r=r)
+    sr = t.sr.clone()
+    for col, rad in enumerate(radii):
+        sr[:, col] = torch.where(computed, float(rad), t.sr[:, col])
+    return t.replace(p=p_out, r=r, sr=sr)
 
-    ``window_margin`` (default 8) evaluates the target through per-POI
-    windows of half-extent r+margin and the lattice kernel; a POI whose GN
-    iterate drifts more than margin-2 px past its seed fails with -3.
-    ``None`` evaluates every sample through the global per-pixel LUT.
-    ``compute(table, center_offset)`` takes the stereo overload's [N, 2]
-    target-center offsets (oc_icgn.cpp:353-560), chunked with the table.
-    ``stats`` counts the eval branches and loop phases of every compute."""
+
+class Refiner2D(base.Module2D):
+    """What the 2D iterative refiners share: the iteration limits, the
+    reference gradients and the target LUT, POI chunks of at most
+    ``chunk_size`` within ``base.budget_chunk``'s working set, and the
+    windowed eval's margin (``window_margin``, default 8; ``None`` or an
+    image smaller than the window takes the global LUT).  ``stats`` counts
+    the eval branches and iterations of every compute."""
 
     order = 1
 
@@ -70,45 +86,83 @@ class ICGN2D1(base.Module2D):
         self.prepare_ref()
         self.prepare_tar()
 
-    def compute(self, table: poi_mod.POITable2D,
-                center_offset: Optional[torch.Tensor] = None
-                ) -> poi_mod.POITable2D:
+    def _ready(self, table) -> None:
         if self._lut is None:
             raise RuntimeError("call prepare() before compute()")
         self._check_table(table)
-        rx, ry = self.subset_radius_x, self.subset_radius_y
+
+    def _margin(self) -> Optional[int]:
+        """The windowed eval's margin, or None where the image is smaller
+        than the window (the global path)."""
         margin = self.window_margin
         if margin is not None:
             h, w = self.ref_img.shape
-            if min(w - 2 * rx, h - 2 * ry) - 1 < 2 * margin:
-                margin = None  # image smaller than the window: global path
-        chunk = base.budget_chunk(self.chunk_size, rx, ry)
+            if min(w - 2 * self.subset_radius_x,
+                   h - 2 * self.subset_radius_y) - 1 < 2 * margin:
+                return None
+        return margin
+
+    def _fixed(self, run, table, *extras) -> poi_mod.POITable2D:
+        """``run(t, *extras)`` over chunks of ``table`` at the fixed radii
+        (``extras``: per-POI tensors chunked alongside)."""
+        return base.chunked(run, table, base.budget_chunk(
+            self.chunk_size, self.subset_radius_x, self.subset_radius_y),
+            *extras)
+
+    def _adaptive(self, table, refine) -> poi_mod.POITable2D:
+        """Self-adaptive mode: every POI on the static grid of the largest
+        radius in ``table.sr`` (one host read), each with its own radii.
+        ``refine(t, r_max)`` returns the refiner's outputs for a chunk; the
+        chunk shrinks with the (2 r_max + 1)^2 grid."""
+        r_max = int(max(float(table.sr.max()), 1.0))
+        return base.chunked(lambda t: merge_2d(t, refine(t, r_max)), table,
+                            base.budget_chunk(self.chunk_size, r_max, r_max))
+
+
+class ICGN2D1(Refiner2D):
+    """First-order IC-GN (oc_icgn.cpp:144-351).
+
+    With the windowed eval (the default), a POI whose GN iterate drifts
+    more than margin-2 px past its seed fails with -3.
+    ``compute(table, center_offset)`` takes the stereo overload's [N, 2]
+    target-center offsets (oc_icgn.cpp:353-560), chunked with the table.
+    After ``set_self_adaptive(True)`` each POI refines at its radii in
+    ``table.sr`` (oc_icgn.cpp:152-158), through the global LUT."""
+
+    def compute(self, table: poi_mod.POITable2D,
+                center_offset: Optional[torch.Tensor] = None
+                ) -> poi_mod.POITable2D:
+        self._ready(table)
+        conv, stop = self.conv_criterion, self.stop_condition
+        if self.self_adaptive:
+            if center_offset is not None:
+                raise ValueError("ICGN2D: self-adaptive subsets take no "
+                                 "center offsets")
+            return self._adaptive(table, lambda t, r_max: (
+                icgn_ops.icgn2d_adaptive(
+                    self._gx, self._gy, self.ref_img, self._lut, t.x, t.y,
+                    t.sr[:, 0], t.sr[:, 1], t.p, t.r[:, poi_mod.R_ZNCC],
+                    conv, stop, order=self.order, r_max=r_max,
+                    stats=self.stats)))
+        rx, ry = self.subset_radius_x, self.subset_radius_y
+        margin = self._margin()
 
         def run(t, *offs):
-            p_out, u0, v0, zncc, it, dpn, computed = icgn_ops.icgn2d(
+            return merge_2d(t, icgn_ops.icgn2d(
                 self._gx, self._gy, self.ref_img, self._lut, t.x, t.y, t.p,
-                t.r[:, poi_mod.R_ZNCC], self.conv_criterion,
-                self.stop_condition, self.tar_img, order=self.order, rx=rx,
-                ry=ry, center_offset=offs[0] if offs else None,
-                window_margin=margin, stats=self.stats)
-            r = t.r.clone()
-            r[:, poi_mod.R_ZNCC] = zncc
-            for col, val in ((poi_mod.R_U0, u0), (poi_mod.R_V0, v0),
-                             (poi_mod.R_ITER, it), (poi_mod.R_CONV, dpn)):
-                r[:, col] = torch.where(computed, val, t.r[:, col])
-            sr = t.sr.clone()
-            sr[:, 0] = torch.where(computed, float(rx), t.sr[:, 0])
-            sr[:, 1] = torch.where(computed, float(ry), t.sr[:, 1])
-            return t.replace(p=p_out, r=r, sr=sr)
+                t.r[:, poi_mod.R_ZNCC], conv, stop, self.tar_img,
+                order=self.order, rx=rx, ry=ry,
+                center_offset=offs[0] if offs else None,
+                window_margin=margin, stats=self.stats), (rx, ry))
 
         if center_offset is None:
-            return base.chunked(run, table, chunk)
+            return self._fixed(run, table)
         offs = torch.as_tensor(center_offset, dtype=torch.float32).to(
             self.device)
         if tuple(offs.shape) != (table.n, 2):
             raise ValueError(f"center_offset {tuple(offs.shape)}, expected "
                              f"{(table.n, 2)}")
-        return base.chunked(run, table, chunk, offs)
+        return self._fixed(run, table, offs)
 
 
 class ICGN3D1(base.Module3D):

@@ -1,6 +1,9 @@
 """Batched inverse-compositional Gauss-Newton (IC-GN) refinement: 2D first
-and second order with the stereo center offsets (``icgn2d``) and 3D first
-order (``icgn3d1``, at the end).
+and second order with the stereo center offsets (``icgn2d``), with
+self-adaptive subsets (``icgn2d_adaptive``), and 3D first order
+(``icgn3d1``, at the end).  The 2D pieces the other refiners share (the
+windowed eval, the entry guard, the steepest-descent images, the warp and
+the exit codes) live here too: ``ops/iclm.py`` and ``ops/nr.py`` use them.
 
 Reference semantics: ``oc_icgn.cpp`` -- per POI: entry guard (bounds / NaN /
 prior failure -> ZNCC -3, oc_icgn.cpp:160-167); reference subset and its
@@ -18,7 +21,8 @@ per-POI ``active`` mask; finished POIs freeze their state, and the host loop
 ends when none is active, one device sync per iteration.  Every window is
 cut by the gather kernel (ops/gather2d.py) and every target sample is
 evaluated by the lattice kernel (ops/lattice2d.py) through the windowed
-eval below.
+eval below.  The self-adaptive refine, as the JAX package's, cuts plain
+subsets and samples the global LUT.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Optional
 import torch
 
 from . import bspline, linalg as linalg_ops, warp as warp_ops
-from .gather2d import gather_windows_2d
+from .gather2d import gather_windows_2d, gather_windows_2d_plain
 from .lattice2d import lattice_eval_2d
 from .lattice3d import lattice_eval_3d
 from .window3d import gather_windows_3d
@@ -214,6 +218,31 @@ def make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed, *, rx, ry,
     return state, eval_fn
 
 
+def make_windowed_eval2d(img, lut, cx, cy, u_seed, v_seed, *, rx, ry, margin,
+                         stats: Optional[collections.Counter] = None):
+    """Closure form of :func:`make_windowed_eval2d_state` for the refiners
+    that never compact their queue (ICLM, NR): ``eval_fn(gxc, gyc, active)
+    -> [N, S]``."""
+    st, fn = make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed,
+                                        rx=rx, ry=ry, margin=margin,
+                                        stats=stats)
+    return lambda gxc, gyc, active: fn(st, gxc, gyc, active)
+
+
+def global_eval2d(lut):
+    """``eval_fn(gxc, gyc, active) -> [N, S]`` through the global per-pixel
+    LUT, -1 out of range."""
+    return lambda gxc, gyc, active: bspline.bicubic_eval(lut, gxc, gyc)[0]
+
+
+def gather_subsets_2d(img: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                      rx: int, ry: int) -> torch.Tensor:
+    """[N] corners -> [N, 2ry+1, 2rx+1] windows by plain indexing, as the
+    JAX package's vmapped slice: the self-adaptive refiners' subsets, on
+    which the JAX package runs no kernel either."""
+    return gather_windows_2d_plain(img, y0, x0, sh=2 * ry + 1, sw=2 * rx + 1)
+
+
 def _dp_weights(order: int, rx: int, ry: int) -> torch.Tensor:
     """Convergence-norm weights (oc_icgn.cpp:296-306, :836-856).  The
     reference computes the second order's r^4 weights as ints truncated from
@@ -226,6 +255,157 @@ def _dp_weights(order: int, rx: int, ry: int) -> torch.Tensor:
         ry4 = float(int(ry * ry * ry * ry * 0.25))
         w = [1.0, rx2, ry2, rx4, rx2 * ry2, ry4] * 2
     return torch.tensor(w, dtype=_F32)
+
+
+def dp_weights_per_poi(order: int, rxf: torch.Tensor,
+                       ryf: torch.Tensor) -> torch.Tensor:
+    """:func:`_dp_weights` for per-POI radii [N] -> [N, K], in float32 as
+    the JAX package computes them (r^4/4 truncated)."""
+    rx2 = rxf * rxf
+    ry2 = ryf * ryf
+    one = torch.ones_like(rx2)
+    if order == 1:
+        return torch.stack([one, rx2, ry2, one, rx2, ry2], -1)
+    rx4 = torch.trunc(rx2 * rx2 * 0.25)
+    ry4 = torch.trunc(ry2 * ry2 * 0.25)
+    rxy2 = rx2 * ry2
+    return torch.stack([one, rx2, ry2, rx4, rxy2, ry4] * 2, -1)
+
+
+def entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h: int, w: int
+                ) -> torch.Tensor:
+    """The entry guard (oc_icgn.cpp:160-167): the subset inside the image,
+    a finite seed smaller than the image, no earlier failure.  ``rx``/``ry``
+    are ints or per-POI radii."""
+    return ((ys - ry >= 0) & (xs - rx >= 0) & (ys + ry <= h - 1)
+            & (xs + rx <= w - 1) & (u_in.abs() < w) & (v_in.abs() < h)
+            & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in))
+
+
+def subset_corners(xs, ys, rx: int, ry: int, h: int, w: int):
+    """Top-left corners (x0, y0) of each POI's subset, from the C-style
+    truncation (int)poi->x, clamped into the image."""
+    return (torch.clamp(xs.to(_I32) - rx, 0, w - (2 * rx + 1)),
+            torch.clamp(ys.to(_I32) - ry, 0, h - (2 * ry + 1)))
+
+
+def local_grid(rx: int, ry: int, dtype, device):
+    """[1, S] local x and y of a (2ry+1) x (2rx+1) subset, x fastest
+    (row-major, as the reference's loops)."""
+    sh, sw = 2 * ry + 1, 2 * rx + 1
+    xl = (torch.arange(sw, dtype=dtype, device=device) - rx).repeat(sh)
+    yl = (torch.arange(sh, dtype=dtype, device=device)
+          - ry).repeat_interleave(sw)
+    return xl[None, :], yl[None, :]
+
+
+def zero_mean(vals: torch.Tensor, pmf: Optional[torch.Tensor] = None,
+              count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Subset values [N, S] less their mean (oc_subset.cpp:39-53).  With a
+    pixel mask ``pmf`` [N, S] (self-adaptive subsets) the mean is taken
+    over the ``count`` masked pixels and the others are zeroed, so they add
+    nothing to any sum."""
+    if pmf is None:
+        return vals - vals.mean(dim=1, keepdim=True)
+    return (vals - (torch.sum(vals * pmf, dim=1) / count)[:, None]) * pmf
+
+
+def sd_images(gxs: torch.Tensor, gys: torch.Tensor, xl, yl,
+              order: int) -> torch.Tensor:
+    """Steepest-descent images [N, K, S] (oc_icgn.cpp:179-207, :719-759):
+    each gradient times each shape-function monomial, (gx * m..., gy *
+    m...), each product rounded as the JAX package rounds it."""
+    if order == 1:
+        monos = (None, xl, yl)
+    else:
+        monos = (None, xl, yl, xl * xl * 0.5, xl * yl, yl * yl * 0.5)
+    return torch.stack([g if m is None else g * m for g in (gxs, gys)
+                        for m in monos], dim=1)
+
+
+def hessian(sd: torch.Tensor) -> torch.Tensor:
+    """[N, K, K] sums of sd channel products over the subset, one plain
+    reduction an entry."""
+    n, k_ch = sd.shape[:2]
+    hess = torch.empty((n, k_ch, k_ch), dtype=sd.dtype, device=sd.device)
+    for i in range(k_ch):
+        for j in range(i, k_ch):  # (a*b) == (b*a) exactly: mirror the rest
+            hess[:, i, j] = torch.sum(sd[:, i] * sd[:, j], dim=1)
+            hess[:, j, i] = hess[:, i, j]
+    return hess
+
+
+# u ux uy v vx vy: the first-order columns of the 12-dof 2D rows
+FIRST = (0, 1, 2, 6, 7, 8)
+
+
+def warp_start(order: int, p_in: torch.Tensor):
+    """(initial warp matrices, warp_from_p, p_from_warp).  The guess is
+    always the first-order part of ``p_in`` (oc_icgn.cpp:216, :765)."""
+    first = list(FIRST)
+    if order == 1:
+        return (warp_ops.warp2d1_from_p(p_in[:, first]),
+                warp_ops.warp2d1_from_p, warp_ops.p_from_warp2d1)
+    p12 = torch.zeros_like(p_in)
+    p12[:, first] = p_in[:, first]
+    return (warp_ops.warp2d2_from_p(p12), warp_ops.warp2d2_from_p,
+            warp_ops.p_from_warp2d2)
+
+
+def warped(order: int, wmat, tcx, tcy, xl, yl):
+    """Target coordinates of the warped local grid about the centers
+    (tcx, tcy) (oc_deformation.cpp:94-105, :268-282)."""
+    if order == 1:
+        rows, basis = wmat[:, :2], (xl, yl)
+    else:
+        rows, basis = wmat[:, 3:5], (xl * xl, xl * yl, yl * yl, xl, yl)
+    out = []
+    for r, ctr in enumerate((tcx, tcy)):
+        acc = rows[:, r, len(basis)][:, None]
+        for c, b in enumerate(basis):
+            acc = acc + rows[:, r, c][:, None] * b
+        out.append(ctr[:, None] + acc)
+    return out
+
+
+def icgn_guard(zncc_in: torch.Tensor) -> torch.Tensor:
+    """The code of a POI the entry guard rejects (oc_icgn.cpp:165): -3,
+    or its earlier failure code."""
+    return torch.where(zncc_in >= 0, torch.full_like(zncc_in, -3.0),
+                       zncc_in)
+
+
+def finish(order: int, p_new, p_in, zncc_in, valid, oob_fail, it, dpn,
+           znssd, conv: float, max_iter: float, zncc_guard):
+    """Codes and merged rows of a finished refinement.
+
+    ``p_new`` [N, 6] (u ux uy v vx vy) or [N, 12].  ZNCC from ZNSSD, -4
+    where the last step still exceeded ``conv`` at ``max_iter``
+    (oc_icgn.cpp:329-332), -5 on NaN with u, v restored to the guess
+    (:335-340), -3 where a sample fell out of range, ``zncc_guard`` where
+    the entry guard failed.  Returns (p_out [N, 12], zncc_out, computed)."""
+    u_in, v_in = p_in[:, 0], p_in[:, 6]
+    computed = valid & ~oob_fail
+    zncc = 0.5 * (2.0 - znssd)
+    zncc = torch.where((dpn >= conv) & (it >= max_iter),
+                       torch.full_like(zncc, -4.0), zncc)
+    cu, cv = (0, 3) if order == 1 else (0, 6)
+    isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, cu])
+             | torch.isnan(p_new[:, cv]))
+    zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
+    p_new = p_new.clone()
+    p_new[:, cu] = torch.where(isnan, u_in, p_new[:, cu])
+    p_new[:, cv] = torch.where(isnan, v_in, p_new[:, cv])
+    if order == 1:
+        p_out = p_in.clone()
+        for src, dst in enumerate(FIRST):
+            p_out[:, dst] = torch.where(computed, p_new[:, src], p_in[:, dst])
+    else:
+        p_out = torch.where(computed[:, None], p_new, p_in)
+    zncc_out = torch.where(
+        valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
+        zncc_guard)
+    return p_out, zncc_out, computed
 
 
 def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
@@ -261,27 +441,17 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
 
     u_in = p_in[:, 0]
     v_in = p_in[:, 6]
-    # Entry guard (oc_icgn.cpp:160-167).
-    valid = ((ys - ry >= 0) & (xs - rx >= 0) & (ys + ry <= h - 1)
-             & (xs + rx <= w - 1) & (u_in.abs() < w) & (v_in.abs() < h)
-             & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in))
+    valid = entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h, w)
+    x0, y0 = subset_corners(xs, ys, rx, ry, h, w)
 
-    xi = xs.to(_I32)  # C-style truncation, (int)poi->x
-    yi = ys.to(_I32)
-    x0 = torch.clamp(xi - rx, 0, w - sw)
-    y0 = torch.clamp(yi - ry, 0, h - sh)
-
-    # Reference subset, zero-mean norm (oc_subset.cpp:39-53).
+    # Reference subset, zero-mean norm.
     ref_sub = gather_windows_2d(ref_img, y0, x0, sh=sh, sw=sw).reshape(n, s)
-    ref_zm = ref_sub - ref_sub.mean(dim=1, keepdim=True)
+    ref_zm = zero_mean(ref_sub)
     rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
 
-    # Local grid, x fastest (row-major like the reference loops), offset by
-    # the center offsets for the sd images and the warp
-    # (oc_icgn.cpp:400-408).
-    xl = (torch.arange(sw, dtype=fdt, device=dev) - rx).repeat(sh)[None, :]
-    yl = (torch.arange(sh, dtype=fdt, device=dev)
-          - ry).repeat_interleave(sw)[None, :]
+    # Local grid, offset by the center offsets for the sd images and the
+    # warp (oc_icgn.cpp:400-408).
+    xl, yl = local_grid(rx, ry, fdt, dev)
     if center_offset is None:
         xl = xl.expand(n, s)
         yl = yl.expand(n, s)
@@ -292,39 +462,14 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
         yl = yl - oy[:, None]
         tcx, tcy = xs + ox, ys + oy  # target center (oc_icgn.cpp:425-426)
 
-    # Steepest-descent images and Hessian (oc_icgn.cpp:179-210, :719-759).
-    # The sd channels are gradient * monomial products, so the Hessian and
-    # the per-iteration numerator are plain weighted reductions over
-    # [N, S], each product rounded as the JAX package rounds it.
+    # Steepest-descent images and Hessian (oc_icgn.cpp:179-210).  The sd
+    # channels are gradient * monomial products, so the Hessian and the
+    # per-iteration numerator are plain weighted reductions over [N, S].
     gxs = gather_windows_2d(gx, y0, x0, sh=sh, sw=sw).reshape(n, s)
     gys = gather_windows_2d(gy, y0, x0, sh=sh, sw=sw).reshape(n, s)
-    if order == 1:
-        monos = (None, xl, yl)
-    else:
-        monos = (None, xl, yl, xl * xl * 0.5, xl * yl, yl * yl * 0.5)
-    # sd[:, i] = g_i * m_i: (gx * m..., gy * m...)
-    sd = torch.stack([g if m is None else g * m for g in (gxs, gys)
-                      for m in monos], dim=1)  # [N, K, S]
-    k_ch = sd.shape[1]
-    hess = torch.empty((n, k_ch, k_ch), dtype=fdt, device=dev)
-    for i in range(k_ch):
-        for j in range(i, k_ch):  # (a*b) == (b*a) exactly: mirror the rest
-            hess[:, i, j] = torch.sum(sd[:, i] * sd[:, j], dim=1)
-            hess[:, j, i] = hess[:, i, j]
-    hinv = linalg_ops.inv_small(hess)
-
-    # Initial guess: always the first-order part (oc_icgn.cpp:216, :765).
-    first = [0, 1, 2, 6, 7, 8]
-    if order == 1:
-        wmat0 = warp_ops.warp2d1_from_p(p_in[:, first])
-        warp_from_p = warp_ops.warp2d1_from_p
-        p_from_warp = warp_ops.p_from_warp2d1
-    else:
-        p12 = torch.zeros((n, 12), dtype=fdt, device=dev)
-        p12[:, first] = p_in[:, first]
-        wmat0 = warp_ops.warp2d2_from_p(p12)
-        warp_from_p = warp_ops.warp2d2_from_p
-        p_from_warp = warp_ops.p_from_warp2d2
+    sd = sd_images(gxs, gys, xl, yl, order)  # [N, K, S]
+    hinv = linalg_ops.inv_small(hessian(sd))
+    wmat0, warp_from_p, p_from_warp = warp_start(order, p_in)
 
     if window_margin is not None:
         if tar_img is None:
@@ -345,32 +490,17 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     cc = dict(tcx=tcx, tcy=tcy, xl=xl, yl=yl, sd=sd, ref_zm=ref_zm, rn=rn,
               hinv=hinv, ev=ev_state)
 
-    def warped(cc, wmat):
-        """Target coordinates of the warped local grid
-        (oc_deformation.cpp:94-105, :268-282)."""
-        xl, yl = cc["xl"], cc["yl"]
-        if order == 1:
-            rows, basis = wmat[:, :2], (xl, yl)
-        else:
-            rows, basis = wmat[:, 3:5], (xl * xl, xl * yl, yl * yl, xl, yl)
-        out = []
-        for r, ctr in enumerate((cc["tcx"], cc["tcy"])):
-            acc = rows[:, r, len(basis)][:, None]
-            for c, b in enumerate(basis):
-                acc = acc + rows[:, r, c][:, None] * b
-            out.append(ctr[:, None] + acc)
-        return out
-
     def body(cc, state):
         wmat, active, it, dpn, znssd, oob_fail = state
         rn, hinv = cc["rn"], cc["hinv"]
-        gx_c, gy_c = warped(cc, wmat)
+        gx_c, gy_c = warped(order, wmat, cc["tcx"], cc["tcy"], cc["xl"],
+                            cc["yl"])
         tval = ev_fn(cc["ev"], gx_c, gy_c, active)
 
         # Out-of-range detection, -1 sentinel (oc_icgn.cpp:244-255).
         fail_now = torch.any(tval < 0.0, dim=1) & active
 
-        tar_zm = tval - tval.mean(dim=1, keepdim=True)
+        tar_zm = zero_mean(tval)
         tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
         err = tar_zm * (rn / tn)[:, None] - cc["ref_zm"]
         znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
@@ -420,35 +550,93 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
             state = body(cc, state)
         wmat, _, it, dpn, znssd, oob_fail = state
 
-    computed = valid & ~oob_fail
-    p_new = p_from_warp(wmat)  # [N, 6] or [N, 12]
-    zncc = 0.5 * (2.0 - znssd)
-    # Not-converged code (oc_icgn.cpp:329-332).
-    zncc = torch.where((dpn >= conv) & (it >= max_iter),
-                       torch.full_like(zncc, -4.0), zncc)
-    cu, cv = (0, 3) if order == 1 else (0, 6)
-    # NaN fallback (oc_icgn.cpp:335-340): restore u, v to the initial guess.
-    isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, cu])
-             | torch.isnan(p_new[:, cv]))
-    zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
-    p_new = p_new.clone()
-    p_new[:, cu] = torch.where(isnan, u_in, p_new[:, cu])
-    p_new[:, cv] = torch.where(isnan, v_in, p_new[:, cv])
+    p_out, zncc_out, computed = finish(
+        order, p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it, dpn,
+        znssd, conv, max_iter, icgn_guard(zncc_in))
+    return p_out, u_in, v_in, zncc_out, it, dpn, computed
 
-    # Merge the updated components back into the 12-dof table rows.
-    if order == 1:
-        p_out = p_in.clone()
-        for src, dst in enumerate(first):
-            p_out[:, dst] = torch.where(computed, p_new[:, src], p_in[:, dst])
-    else:
-        p_out = torch.where(computed[:, None], p_new, p_in)
 
-    # Failure ZNCC for guarded-out POIs (oc_icgn.cpp:165).
-    zncc_guard = torch.where(zncc_in >= 0, torch.full_like(zncc_in, -3.0),
-                             zncc_in)
-    zncc_out = torch.where(
-        valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
-        zncc_guard)
+def adaptive_subsets(gx, gy, ref_img, xs, ys, srx, sry, *, order: int,
+                     r_max: int):
+    """The self-adaptive refiners' reference side: every POI on the static
+    ``r_max`` grid with a pixel mask of its own radii (clamped to r_max).
+    Masked pixels add nothing to any sum, and the masked mean and count
+    reproduce the smaller subset.  Returns a dict of rxf, ryf, pmask, pmf,
+    count, ref_zm, rn, xl, yl and sd."""
+    h, w = ref_img.shape
+    n = xs.shape[0]
+    s = (2 * r_max + 1) ** 2
+    rxf = torch.clamp(srx, max=float(r_max))
+    ryf = torch.clamp(sry, max=float(r_max))
+    x0, y0 = subset_corners(xs, ys, r_max, r_max, h, w)
+    xl, yl = local_grid(r_max, r_max, ref_img.dtype, ref_img.device)
+    pmask = (xl.abs() <= rxf[:, None]) & (yl.abs() <= ryf[:, None])
+    pmf = pmask.to(ref_img.dtype)
+    cnt = torch.sum(pmf, dim=1)
+    cut = lambda img: gather_subsets_2d(img, x0, y0, r_max,
+                                        r_max).reshape(n, s)
+    ref_zm = zero_mean(cut(ref_img), pmf, cnt)
+    rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
+    sd = sd_images(cut(gx) * pmf, cut(gy) * pmf, xl, yl, order)
+    return dict(rxf=rxf, ryf=ryf, pmask=pmask, pmf=pmf, count=cnt,
+                ref_zm=ref_zm, rn=rn, xl=xl, yl=yl, sd=sd)
+
+
+def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
+                    ref_img: torch.Tensor, tar_lut: torch.Tensor,
+                    xs: torch.Tensor, ys: torch.Tensor, srx: torch.Tensor,
+                    sry: torch.Tensor, p_in: torch.Tensor,
+                    zncc_in: torch.Tensor, conv: float, max_iter: float, *,
+                    order: int, r_max: int,
+                    stats: Optional[collections.Counter] = None):
+    """Self-adaptive-subset IC-GN (oc_icgn.cpp:152-158): per-POI subset
+    radii ``srx``/``sry`` [N] on the static ``r_max`` grid
+    (:func:`adaptive_subsets`), every sample through the global LUT.
+    Returns (p_out, u0, v0, zncc, iteration, convergence, computed)."""
+    h, w = ref_img.shape
+    count = stats if stats is not None else collections.Counter()
+    u_in, v_in = p_in[:, 0], p_in[:, 6]
+    a = adaptive_subsets(gx, gy, ref_img, xs, ys, srx, sry, order=order,
+                         r_max=r_max)
+    valid = entry_guard(xs, ys, a["rxf"], a["ryf"], u_in, v_in, zncc_in, h,
+                        w)
+    pmask, pmf, cnt, rn = a["pmask"], a["pmf"], a["count"], a["rn"]
+    hinv = linalg_ops.inv_small(hessian(a["sd"]))
+    wmat0, warp_from_p, p_from_warp = warp_start(order, p_in)
+    dp_w = dp_weights_per_poi(order, a["rxf"], a["ryf"])
+
+    def body(state):
+        wmat, active, it, dpn, znssd, oob_fail = state
+        gx_c, gy_c = warped(order, wmat, xs, ys, a["xl"], a["yl"])
+        tval = bspline.bicubic_eval(tar_lut, gx_c, gy_c)[0]
+        fail_now = torch.any((tval < 0.0) & pmask, dim=1) & active
+        tar_zm = zero_mean(tval, pmf, cnt)
+        tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
+        err = tar_zm * (rn / tn)[:, None] - a["ref_zm"]
+        znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
+        num = torch.sum(a["sd"] * err[:, None, :], dim=2)
+        dp = torch.bmm(hinv, num[:, :, None])[:, :, 0]
+        wmat_new = torch.bmm(wmat, linalg_ops.inv_small(warp_from_p(dp)))
+        dpn_new = torch.sqrt(torch.sum(dp * dp * dp_w, dim=1))
+
+        step = active & ~fail_now
+        wmat = torch.where(step[:, None, None], wmat_new, wmat)
+        znssd = torch.where(step, znssd_new, znssd)
+        dpn = torch.where(step, dpn_new, dpn)
+        it = torch.where(step, it + 1.0, it)
+        oob_fail = oob_fail | fail_now
+        active = step & (dpn >= conv) & (it < max_iter)
+        return wmat, active, it, dpn, znssd, oob_fail
+
+    zf = torch.zeros_like(xs)
+    state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
+    while bool(state[1].any()):
+        count["iter_full"] += 1
+        state = body(state)
+    wmat, _, it, dpn, znssd, oob_fail = state
+    p_out, zncc_out, computed = finish(
+        order, p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it, dpn,
+        znssd, conv, max_iter, icgn_guard(zncc_in))
     return p_out, u_in, v_in, zncc_out, it, dpn, computed
 
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's DVC and stereo paths on one GPU.
+"""Device-time breakdown of the port's DVC, stereo and self-adaptive 2D
+paths on one GPU.
 
 Run from the root of the repository:
 
     python3 profile_torch_dvc.py              # FFTCC3D -> ICGN3D1 -> Strain
     python3 profile_torch_dvc.py --path sift  # SIFT3D -> FA3D -> ICGN3D1
     python3 profile_torch_dvc.py --path stereo  # the stereo example's run
+    python3 profile_torch_dvc.py --path self_adaptive  # dic_2d's workload
 
 It builds the CUDA kernels and makes ``chip_smoke.py``'s volume pair.  The
 default path warms up on 512 POIs, then runs FFTCC3D(30) ->
@@ -16,6 +18,9 @@ ICGN3D1(16, 16, 16, 0.001, 10) on the 78,246 POIs of the 568x288x940
 Torus-size pair.  ``--path stereo`` warms up on a crop, then runs
 ``examples/stereo_3d_dic_epipolar_sift.run`` on ``chip_smoke.py``'s
 1920x1200 stereo scene (10,000 POIs), whose phases open their own ranges.
+``--path self_adaptive`` warms up on a small grid, then runs
+``examples/dic_2d.run("self_adaptive")`` on ``chip_smoke.py``'s utn-size
+pair (38,400 POIs), whose StageTimer opens a range per stage.
 Each runs under ``torch.profiler`` and prints, per
 stage, the host wall time, the device time of the kernels launched in it
 (their sum over the wall time is the device's busy share), the kernels
@@ -108,9 +113,38 @@ def _stereo_path(torch, cs, ot):
         lambda: {k: v for k, v in info.items() if k != "sift2d_octaves"}
 
 
+def _self_adaptive_path(torch, cs, ot):
+    """The planar suite's self_adaptive workload (SIFT2D ->
+    FeatureAffine2D -> self-adaptive ICGN2D1(30) -> Strain(25, 10)) at the
+    utn size on chip_smoke.py's pair; its stages are its StageTimer's
+    ranges."""
+    import tempfile
+
+    from opencorr_tpu_torch.examples import dic_2d
+
+    ref, tar, center = cs.speckle_pair(seed=0)
+    uref, utar, _ = cs.dic2d_inputs(ref, tar, center)["utn"]
+    prefix = os.path.join(tempfile.mkdtemp(), "dic2d")
+    dic_2d.run("self_adaptive", uref, utar, prefix, "cuda",
+               grid=((50, 50), 20, 20, 5))
+    info = {}
+
+    def adaptive(table):
+        out, timer = dic_2d.run("self_adaptive", uref, utar, prefix, "cuda",
+                                stats=info)
+        info["stage_ms"] = {n: s * 1e3 for n, s in zip(timer.names,
+                                                        timer.seconds)}
+        return out
+
+    return (("self_adaptive", adaptive),), \
+        ot.poi_grid_2d(*dic_2d.GRIDS["self_adaptive"]), \
+        lambda: {k: v for k, v in info.items() if k != "sift2d_octaves"}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--path", choices=("dvc", "sift", "stereo"),
+    parser.add_argument("--path", choices=("dvc", "sift", "stereo",
+                                           "self_adaptive"),
                         default="dvc")
     args = parser.parse_args()
     import torch
@@ -131,6 +165,9 @@ def main() -> int:
     elif args.path == "stereo":
         _kernels.build(["gather2d", "lattice2d"])
         run, pois, stats = _stereo_path(torch, cs, ot)
+    elif args.path == "self_adaptive":
+        _kernels.build(["gather2d", "lattice2d"])
+        run, pois, stats = _self_adaptive_path(torch, cs, ot)
     else:
         _kernels.build(["lattice3d"])
         run, pois, stats = _dvc_path(torch, cs, ot)

@@ -10,8 +10,10 @@ within 1e-6 x max|eblk| (the 3D kernel also ``==`` on the shapes that
 exercise its ring of staged planes), and exactly 0 where a placement
 offset is out of range.  The SIFT3D descriptor histogram: within 1e-5 x
 max|S| (float atomics sum in an order that varies from run to run), on
-white noise and on blurred volumes.  The DVC modules and
-the SIFT3D slice: cuda against cpu on small pairs."""
+white noise and on blurred volumes.  Gather and lattice also at the
+planar suite's r=12 shapes, the lattice there ``==``.  The DVC modules,
+the SIFT3D slice and the planar refiners: cuda against cpu on small
+pairs."""
 
 import collections
 
@@ -457,3 +459,77 @@ def test_epipolar_search_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(outs["cuda"]["p"], outs["cpu"]["p"], rtol=0,
                                atol=1e-3)
     assert (zp > 0.9).mean() > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sh,sw", [(42025, 25, 25), (42025, 32, 32),
+                                     (1313, 40, 40)])
+def test_gather_kernel_planar_r12_shapes(cuda, n, sh, sw):
+    """Kernel 1 at the r=12 shapes of the planar suite's second-order
+    workloads (42,025 POIs): subsets, D=2 blocks and the correction cap's
+    D=6 blocks, on a rotation-size image."""
+    rng = np.random.default_rng(sh)
+    img = torch.from_numpy(np.round(rng.uniform(0, 255, (512, 512))).astype(
+        np.float32))
+    y0, x0 = (torch.from_numpy(a) for a in _corners(n, 512, 512, sh, sw,
+                                                    seed=sh, low=-sh))
+    got = gather2d.gather_windows_2d(img.to(cuda), y0.to(cuda), x0.to(cuda),
+                                     sh=sh, sw=sw)
+    torch.cuda.synchronize()
+    want = gather2d.gather_windows_2d_plain(img, y0, x0, sh=sh, sw=sw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(2, 42025), (6, 1313)])
+def test_lattice_kernel_equals_plain_r12(cuda, d, n):
+    """Kernel 2 ``==`` its plain version at r=12: D=2 on 42,025 POIs and
+    D=6 at the correction cap."""
+    arrs = [torch.from_numpy(a).to(cuda)
+            for a in _lattice_inputs(n, 25, d, seed=12 + d)]
+    got = lattice2d.lattice_eval_2d(*arrs, d_wobble=d)
+    want = lattice2d.lattice_eval_2d_plain(*arrs, d_wobble=d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_planar_refiners_cuda_match_cpu(cuda):
+    """ICLM2D1/2, NR2D1 and the self-adaptive ICGN2D1 and ICLM2D1 on a
+    small translated pair: cuda against cpu, codes equal, u/v within 1e-3
+    px."""
+    import opencorr_tpu_torch as ot
+    from scipy.ndimage import gaussian_filter, shift as ndshift
+
+    rng = np.random.default_rng(6)
+    base = gaussian_filter(rng.standard_normal((220, 240)), 1.5)
+    base = base / base.std() * 28.0 + 128.0
+    ref = np.round(base[20:200, 20:220]).astype(np.float32)
+    tar = np.round(ndshift(base, (-0.7, 1.3), order=3)[20:200, 20:220]
+                   ).astype(np.float32)
+    grid = ot.poi_grid_2d((40, 40), 8, 6, 16, device="cpu")
+    n = grid.n
+    p = np.zeros((n, 12), np.float32)
+    p[:, 0], p[:, 6] = 1.0, -1.0
+    sr = rng.integers(10, 19, (n, 2)).astype(np.float32)
+    seed = (grid.x.numpy(), grid.y.numpy(), p, np.zeros((n, 6), np.float32),
+            np.zeros((n, 3), np.float32), sr)
+    for cls, adaptive in ((ot.ICLM2D1, False), (ot.ICLM2D2, False),
+                          (ot.NR2D1, False), (ot.ICGN2D1, True),
+                          (ot.ICLM2D1, True)):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            m = cls(12, 12, 0.001, 10, device=dev)
+            m.set_images(ref, tar)
+            m.prepare()
+            if adaptive:
+                m.set_self_adaptive(True)
+            outs[dev] = ot.table_to_numpy(m.compute(ot.table_from_numpy(
+                *seed, device=dev)))
+        zc, zp = outs["cuda"]["r"][:, 2], outs["cpu"]["r"][:, 2]
+        np.testing.assert_array_equal(np.where(zc < 0, zc, 1),
+                                      np.where(zp < 0, zp, 1))
+        np.testing.assert_allclose(outs["cuda"]["p"][:, [0, 6]],
+                                   outs["cpu"]["p"][:, [0, 6]], rtol=0,
+                                   atol=1e-3)
+        assert (zp > 0.9).mean() > 0.9

@@ -199,16 +199,19 @@ def test_tf32_is_off():
 
 
 def test_unported_options_raise():
-    """What this slice still leaves out raises; ICGN2D2 and the stereo
-    center offsets are ported (tests/test_torch_stereo_icgn.py)."""
-    for cls in (ot.ICGN2D1, ot.ICGN2D2):
+    """What the port still leaves out raises; self-adaptive subsets are
+    ported (tests/test_torch_adaptive.py), except for NR2D1, which has
+    none."""
+    for cls in (ot.ICGN2D1, ot.ICGN2D2, ot.ICLM2D1, ot.ICLM2D2):
         m = cls(16, 16, device=CPU)
-        with pytest.raises(NotImplementedError):
-            m.set_self_adaptive(True)
+        m.set_self_adaptive(True)
+        assert m.self_adaptive
+    with pytest.raises(NotImplementedError):
+        ot.NR2D1(16, 16, device=CPU).set_self_adaptive(True)
     with pytest.raises(NotImplementedError):
         ot.SIFT2D(backend="opencv", device=CPU)
     fa = ot.FeatureAffine2D(16, 16, device=CPU)
-    with pytest.raises(NotImplementedError):
-        fa.set_self_adaptive(True)
+    fa.set_self_adaptive(True)
+    assert fa.self_adaptive
     with pytest.raises(NotImplementedError):
         ot.FeatureAffine2D(16, 16, neighbor_backend="device", device=CPU)

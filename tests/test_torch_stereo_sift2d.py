@@ -307,5 +307,5 @@ def test_fa2d_module_with_jax_draws_equals_jax_module():
     assert ok.mean() > 0.8
     np.testing.assert_allclose(out.p.numpy()[ok][:, [tpoi.U, tpoi.V]],
                                exp[ok], atol=2e-2)
-    with pytest.raises(NotImplementedError):
-        fa.set_self_adaptive(True)
+    fa.set_self_adaptive(True)  # ported: tests/test_torch_adaptive.py
+    assert fa.self_adaptive
