@@ -13,9 +13,10 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    all started together).
 2. Each kernel against its plain PyTorch version on the card at the main
    paths' shapes: the window gather bit-exact at 30k x 32x32, 33x33 and
-   40x40, 940 x 48x48 and the stereo path's epipolar candidates at 41x41
-   (16,379 windows, every chunk's, from the search's own chunk rule) with
-   corners that need clamping; the 2D lattice eval at D=2
+   40x40, 940 x 48x48 and the epipolar candidates at 41x41 of the stereo
+   path (16,379 windows) and of the reconstruction example (16,380
+   windows: 2,340 POIs x 7 candidates), every chunk's, from the search's
+   own chunk rule, with corners that need clamping; the 2D lattice eval at D=2
    (30k and 10k POIs) and D=6 (940 and 312 POIs) within 1e-6 x max|eblk|;
    the
    3D lattice eval at D=1 at one ICGN3D1 chunk of the DVC path (441 x
@@ -24,12 +25,13 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    with ``==``; both lattice evals exactly 0 for out-of-range offsets; the
    SIFT3D descriptor histogram at the octave-0 crops 23, 29 and 36, with
    random rotations, at 64 keypoints (some near the volume's faces in
-   clamped windows; the kernel splits each box into z-bands) and at phase
-   7's kept count of that layer (4,689, 12,187 and 13,808; one block per
-   keypoint) on white noise and on the same volume blurred at the layer's
-   sigma, and at the octave-1 layers' counts (5,942, 1,507 and 564 at
-   twice the voxel pitch) on the blurred volume, every keypoint within
-   1e-5 x max|S| (float atomics sum in a varying order).  Then kernels 1
+   clamped windows; the kernel splits each box into z-bands) and at the
+   reference volume's kept count of that layer on white noise, and at
+   every launch shape of phase 7 (``TORUS_DESC``: both volumes' kept
+   counts on the octave-0, -1 and -2 layers whose crop fits, 4,689 to
+   13,808 keypoints at one block a keypoint, 164 to 564 in z-bands) on the
+   volume blurred at the layer's sigma and voxel pitch, every keypoint
+   within 1e-5 x max|S| (float atomics sum in a varying order).  Then kernels 1
    and 2 ``==`` their plain versions at every shape of phase 12's planar
    suite that the lists above lack, derived from the port's own chunk,
    correction-cap and compaction rules (``dic2d_launch_shapes``): the
@@ -62,15 +64,19 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    fallback: FFTCC u/v/w equal, codes equal, u/v/w within 1e-3 voxel.
 7. The feature-seeded DVC path on ``cuda`` at the Torus CT pair's
    dimensions, 568x288x940 8-bit, built on the card (synthetic pores over a
-   weak speckle, grey levels 18-238; the target is the reference translated by u=0.5, v=-0.8,
-   w=1.2 through a Fourier phase shift): SIFT3D() -> FeatureAffine3D(16,
-   16, 16) -> ICGN3D1(16, 16, 16, 0.001, 10) -> ``save_table_3d`` on
-   ``poi_grid_3d((30,30,30),81,21,46,11)`` (78,246 POIs).  Counters zeroed
-   after a warm-up on a sub-volume and read just after, kernels 3 and 4
-   timed per launch with CUDA events in that run.  Reports every
-   pyramid layer's candidate and survivor counts beside its caps; checks
-   the median matched displacement (within 1 voxel of the shift), the
-   converged fraction (>= 0.9) and mean |du|, |dv|, |dw| (< 0.01 voxel).
+   weak speckle, grey levels 18-238; the target is the reference
+   translated by u=0.5, v=-0.8, w=1.2 through a Fourier phase shift),
+   through ``examples/dvc.run``'s ``sift_icgn1`` workload: SIFT3D() ->
+   FeatureAffine3D(16, 16, 16) -> ICGN3D1(16, 16, 16, 0.001, 10) ->
+   ``save_table_3d``, ``save_matrix_bin_3d`` on
+   ``poi_grid_3d((30,30,30),81,21,46,11)`` (78,246 POIs) read from a POI
+   CSV.  Counters zeroed after a warm-up on a sub-volume and read just
+   after, kernels 3 and 4 timed per launch with CUDA events in that run.
+   Reports every pyramid layer's candidate and survivor counts beside its
+   caps; checks the median matched displacement (within 1 voxel of the
+   shift), the converged fraction (>= 0.9), mean |du|, |dv|, |dw| (< 0.01
+   voxel), the native writer and that every launch shape of kernels 3 and
+   4 is one phase 2 checked.
 8. SIFT3D, FeatureAffine3D and ICGN3D1 on ``cuda`` and on ``cpu`` on a
    64x64x72 pair: keypoint counts and matched sets equal; FeatureAffine3D
    on the same matches with the same RANSAC draws: codes equal, p within
@@ -118,7 +124,34 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    exx and eyy of strain, and exx of self_adaptive, within 1e-3 of the
    imposed 0.005; the fftcc_icgn1 table equal to phase 3's; every launch
    shape one that phase 2 checked.
-13. JSON lines: per-kernel records, the stage times, and last
+13. The DVC example (``examples/dvc.run``) on ``cuda``: ``fftcc_icgn1`` on
+   ``.bin`` files of phase 5's volumes with phase 5's grid as a POI CSV
+   (r=30), then ``strain`` on the table it wrote.  Checks the table
+   equals phase 5's, phase 5's gates, mean ezz within 1e-3 of 0.005, the
+   native writers and every kernel-3 launch shape against phase 2's.
+14. Sharded DVC (``parallel/halo.ShardedICGN3D1``) on a real NCCL group of
+   one (``make_mesh(1, axis="z")``): ShardedICGN3D1(30,30,30,0.001,10) on
+   phase 5's uint8 volumes and FFTCC3D seeds (5,733 POIs) against phase
+   5's ICGN3D1 table, codes equal and u/v/w within 1e-5 voxel, every
+   kernel-3 launch shape one phase 2 checked; then 64 POIs at r=16 (four
+   at the z faces, which the z guards and the global edge guard fail -3)
+   on ``cuda`` and on the group's cpu mesh: codes equal, u/v/w within
+   1e-3 voxel.  Prints the stage times (halo exchange, prepare, refine,
+   gather) and kernel 3's launches.
+15. The reconstruction example (``examples/reconstruction_epipolar.run``,
+   SIFT mode) on ``cuda`` on 1920x1200 views of a curved speckled surface
+   (``ReconScene``: its view-2 x parallax is bilinear in the view-1
+   position, so the fitted model's +-6 px search reaches every truth; a
+   plane through these cameras leaves 74% of the truths out of reach),
+   68,800 POIs, after a warm-up on a 300x400 crop.  Prints the fitted
+   parallax, every truth's epipolar reach from the fitted estimate (and
+   how many lie past 6 px), the SIFT2D octave counts and the stage times.
+   Checks ZNCC > 0.9 on at least 0.9 of POIs, mean |view-2 position -
+   truth| < 0.02 px, the mean 3D error under the bound from moving each
+   matched coordinate by 0.02 px, and that every kernel-1 launch shape is
+   one phase 2 checked.  The constant-parallax branch is held against the
+   JAX package on the CPU only (tests/test_torch_examples_dvc_recon.py).
+16. JSON lines: per-kernel records, the stage times, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -149,6 +182,7 @@ LATTICE3D_FLOPS = 3 * 21 + 16 + 64 * 3
 # The DVC path: al_foam4's volume size [z, y, x], the golden table's POI
 # grid, r=30, and the field imposed on the target.
 DVC_SHAPE = (700, 100, 100)
+DVC_GRID = ((35, 35, 60), 7, 7, 117, 5)  # poi_grid_3d's arguments
 DVC_R = 30
 DVC_UVW = (0.4, -0.3, 0.6)
 DVC_STRAIN = 0.005
@@ -169,12 +203,18 @@ TORUS_GRID = ((30, 30, 30), 81, 21, 46, 11)
 # fewer than 4 matched keypoints in FeatureAffine3D's radius (code -1).
 PORES = dict(spacing=12.5, sigmas=(2.8, 3.4), amp=30.0, speckle_sigma=2.0,
              speckle_std=1.5)
-# Keypoints the Torus-size path keeps on the reference volume's octave-0
-# layers (crops 23, 29, 36; phase 7 prints them): phase 2 launches kernel 4
-# at these counts too, where it runs one block per keypoint.
-TORUS_KEPT = (4689, 12187, 13808)
-# ... and on its octave-1 layers (the same crops at twice the voxel pitch).
-TORUS_KEPT_OCT1 = (5942, 1507, 564)
+# Keypoints the Torus-size path keeps on each pyramid layer whose crop fits
+# kernel 4, as (reference, target), by the layer's index in SIFT3D's plan
+# (phase 7 prints them): octave 0 (layers 1-3, crops 23, 29, 36), octave 1
+# (7-9, the same crops at twice the voxel pitch) and octave 2 (13-14).
+# Phase 2 launches kernel 4 at every one of these counts, the launch shapes
+# of phase 7; at 1,056 keypoints and more a launch runs one block per
+# keypoint, below it splits each keypoint's box into z-bands.
+TORUS_DESC = {1: (4689, 3485), 2: (12187, 12229), 3: (13808, 13686),
+              7: (5942, 5917), 8: (1507, 1529), 9: (564, 540),
+              13: (338, 320), 14: (167, 164)}
+# the reference volume's octave-0 counts (bench_torch_kernels.py's)
+TORUS_KEPT = tuple(TORUS_DESC[i][0] for i in (1, 2, 3))
 # csrc/desc3d.cu's kTargetBlocks: below this many keypoints a launch splits
 # each keypoint's box into z-bands.
 DESC_TARGET_BLOCKS = 132 * 8
@@ -332,6 +372,18 @@ def epipolar_windows(ot):
     return min(e.chunk_pois(), STEREO_POIS) * len(e.candidate_offsets())
 
 
+def recon_windows(ot):
+    """Candidate windows a chunk of the reconstruction example's
+    EpipolarSearch gathers at GT4 size (``set_search(8, 2)``: 7
+    candidates; the search's own chunk rule over its 68,800 POIs)."""
+    from opencorr_tpu_torch.examples import reconstruction_epipolar as rec
+
+    e = ot.EpipolarSearch(None, None, device="cpu")
+    e.set_search(*rec.SIFT_SEARCH)
+    _, nx, ny, _ = recon_grid(STEREO_SIZE)
+    return min(e.chunk_pois(), nx * ny) * len(e.candidate_offsets())
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -428,8 +480,9 @@ def lattice_case(torch, dev, n, s, d, rng, reps, exact=False, **tags):
 def phase_kernels(torch, ot, img, rng, reps):
     """Kernel vs plain version on the card at the main path's shapes."""
     dev = img.device
-    # the stereo path's epipolar candidates: a chunk's POIs x 11 candidates
-    # at r=20, read from a GT4-size image
+    # the stereo path's epipolar candidates (a chunk's POIs x 11 candidates)
+    # and the reconstruction example's (x 7) at r=20, read from a GT4-size
+    # image
     simg = torch.from_numpy(np.round(rng.uniform(0, 255, STEREO_SIZE)).astype(
         np.float32)).to(dev)
     side = 2 * STEREO_EPI_R + 1
@@ -437,7 +490,8 @@ def phase_kernels(torch, ot, img, rng, reps):
                           for n, sh, sw, src in (
                               (30000, 32, 32, img), (30000, 33, 33, img),
                               (30000, 40, 40, img), (940, 48, 48, img),
-                              (epipolar_windows(ot), side, side, simg))]}
+                              (epipolar_windows(ot), side, side, simg),
+                              (recon_windows(ot), side, side, simg))]}
     # the main path's D=2 block and D=6 correction, and the stereo path's
     # second-order ones (10,000 POIs; the correction cap max(256, n/32))
     records["lattice"] = [
@@ -460,7 +514,8 @@ def lattice3d_chunks(torch):
     import opencorr_tpu_torch as ot
 
     out = []
-    for r, n_queue in ((DVC_R, 5733), (TORUS_R, int(np.prod(TORUS_GRID[1:4])))):
+    for r, n_queue in ((DVC_R, int(np.prod(DVC_GRID[1:4]))),
+                       (TORUS_R, int(np.prod(TORUS_GRID[1:4])))):
         icgn = ot.ICGN3D1(r, r, r, device="cuda")
         out.append((icgn.auto_chunk(n_queue), 2 * r + 1))
     return out
@@ -652,6 +707,7 @@ def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces,
     band = -(-cz // min(cz, -(-DESC_TARGET_BLOCKS // k)))
     rec = dict(
         shape=[k] + [2 * c + 1 for c in crop], scale=scale,
+        launch="x".join(map(str, (k, *crop))),
         units=list(units), volume=volume,
         max_abs_err=err, tolerance=tol, z_bands=-(-cz // band),
         ms=cuda_ms(torch, lambda: desc3d.descriptor_hist(
@@ -667,16 +723,15 @@ def desc3d_case(torch, vol, crop, scale, k, rng, reps, near_faces,
 
 
 def phase_desc3d(torch, ot, rng, reps, k=64):
-    """The descriptor-histogram kernel against its plain version at the
-    crops of the Torus path's octave-0 and octave-1 layers, with each
-    layer's scale and voxel pitch, on a 96x100x120 volume of white noise
-    and the same volume Gaussian-blurred at the layer's sigma in voxels (as
-    the path's pyramid layers are: neighbouring voxels then share their
-    face and tent bins).  Octave 0: ``k`` keypoints on noise, some near the
-    faces (the kernel splits each keypoint's box into z-bands to fill the
-    card), then the main path's keypoint count of the layer (one block per
-    keypoint) on both volumes; octave 1: the path's count on the blurred
-    volume."""
+    """The descriptor-histogram kernel against its plain version at every
+    launch shape of the Torus-size path (``TORUS_DESC``: each layer's
+    crop, scale and voxel pitch at the reference's and the target's kept
+    counts), on a 96x100x120 volume Gaussian-blurred at the layer's sigma
+    in voxels (as the path's pyramid layers are: neighbouring voxels then
+    share their face and tent bins); on octave 0 also ``k`` keypoints of
+    white noise, some near the faces (the kernel splits each keypoint's
+    box into z-bands to fill the card), and the reference's count on the
+    noise."""
     from scipy.ndimage import gaussian_filter
 
     from opencorr_tpu_torch.ops import sift3d
@@ -686,23 +741,22 @@ def phase_desc3d(torch, ot, rng, reps, k=64):
     noise = np.float32(128 + 40 * rng.standard_normal(shape))
     vol = torch.from_numpy(noise).cuda()
     recs = []
-    # octave 0 is layers 1-3 of the plan, octave 1 layers 7-9
-    for lay, k_path, octave in [(lay, kp, 0) for lay, kp in zip(
-            layers[1:4], TORUS_KEPT)] + [(lay, kp, 1) for lay, kp in zip(
-                layers[7:10], TORUS_KEPT_OCT1)]:
+    for index, counts in TORUS_DESC.items():
+        lay = layers[index]
         units = tuple(float(u) for u in lay.units)
         crop = sift3d._sphere_crop(64, lay.scale, units)
         blurred = torch.from_numpy(np.float32(gaussian_filter(
             noise, lay.scale / units[0]))).cuda()
-        if octave == 0:
+        if lay.octave == 0:
             recs.append(desc3d_case(torch, vol, crop, lay.scale, k, rng,
                                     reps, near_faces=True, units=units))
-            recs.append(desc3d_case(torch, vol, crop, lay.scale, k_path,
+            recs.append(desc3d_case(torch, vol, crop, lay.scale, counts[0],
                                     rng, max(2, reps // 3), near_faces=False,
                                     units=units))
-        recs.append(desc3d_case(torch, blurred, crop, lay.scale, k_path, rng,
-                                max(2, reps // 3), near_faces=False,
-                                units=units, volume="blurred"))
+        for k_path in counts:
+            recs.append(desc3d_case(torch, blurred, crop, lay.scale, k_path,
+                                    rng, max(2, reps // 3), near_faces=False,
+                                    units=units, volume="blurred"))
         del blurred
     return recs
 
@@ -907,22 +961,22 @@ def run_dvc(torch, ot, ref, tar, pois, device, r=DVC_R, out_dir=None):
         t0 = time.perf_counter()
         ot.save_matrix_bin_3d(os.path.join(out_dir, "dvc.bin"), out, dims)
         ms["save_matrix_bin_3d"] = (time.perf_counter() - t0) * 1e3
-    return out, ms, dict(icgn.stats), dict(fftcc.stats)
+    return seeded, refined, out, ms, dict(icgn.stats), dict(fftcc.stats)
 
 
 def phase_dvc(torch, ot, ref, tar, tmpdir):
     from opencorr_tpu_torch.ops import lattice3d
 
-    pois = ot.poi_grid_3d((35, 35, 60), 7, 7, 117, 5)
+    pois = ot.poi_grid_3d(*DVC_GRID)
     n = pois.n
-    check(n == 5733, "DVC grid size")
+    check(n == int(np.prod(DVC_GRID[1:4])), "DVC grid size")
     run_dvc(torch, ot, ref, tar, pois.map(lambda a: a[:512]), "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lattice3d.lattice_eval_3d.launches = 0
     lattice3d.lattice_eval_3d.events = []
-    out, ms, stats, fstats = run_dvc(torch, ot, ref, tar, pois, "cuda",
-                                     out_dir=tmpdir)
+    seeded, refined, out, ms, stats, fstats = run_dvc(
+        torch, ot, ref, tar, pois, "cuda", out_dir=tmpdir)
     launches = {"lattice_eval_3d": lattice3d.lattice_eval_3d.launches}
     kernel_ms = {"lattice_eval_3d": event_ms(lattice3d.lattice_eval_3d)}
     peak = torch.cuda.max_memory_allocated()
@@ -966,15 +1020,15 @@ def phase_dvc(torch, ot, ref, tar, tmpdir):
     check(abs(res["mean_ezz"] - DVC_STRAIN) < 1e-3,
           f"DVC ezz {res['mean_ezz']} vs {DVC_STRAIN}")
     check(n_lines == n + 1, f"DVC csv lines {n_lines}")
-    check(rec.shape == (n, 8) and dims == (100, 100, 700), "matrix bin")
-    return res, launches
+    check(rec.shape == (n, 8) and dims == DVC_SHAPE[::-1], "matrix bin")
+    return res, launches, ot.table_to_numpy(seeded), ot.table_to_numpy(refined)
 
 
 def phase_dvc_cpu_agreement(torch, ot, ref, tar, r=16, n_pois=64):
     """The DVC modules on cuda and on cpu on a 64-POI subset at r=16, every
     8th seed strained by 0.2 along z (the whole-chunk exact fallback)."""
     devices = card, host = ("cuda", "cpu")
-    full = ot.poi_grid_3d((35, 35, 60), 7, 7, 117, 5, device="cpu")
+    full = ot.poi_grid_3d(*DVC_GRID, device="cpu")
     keep = np.linspace(0, full.n - 1, n_pois).astype(np.int64)
     xyz = [a[keep] for a in full.coords_numpy()]
     seeded = {}
@@ -1078,7 +1132,9 @@ def sift_pair(torch, shape, seed, device, pad=16):
 
 def run_sift_slice(torch, ot, ref, tar, pois, device, r=TORUS_R,
                    csv_path=None):
-    """SIFT3D -> FeatureAffine3D -> ICGN3D1 on ``pois``; per-stage ms."""
+    """SIFT3D -> FeatureAffine3D -> ICGN3D1 on ``pois``; per-stage ms
+    (``profile_torch_dvc.py``'s warm-up; phase 7 runs the path through
+    ``examples/dvc.py``)."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     ms = {}
     t0 = time.perf_counter()
@@ -1112,45 +1168,73 @@ def run_sift_slice(torch, ot, ref, tar, pois, device, r=TORUS_R,
     return sift, seeded, out, ms, dict(icgn.stats)
 
 
-def phase_sift(torch, ot, tmpdir):
+def write_pois_csv(path, table):
+    """A POI CSV (x, y, z under a header) of ``table``'s coordinates, as
+    ``examples/dvc.run`` reads one."""
+    np.savetxt(path, np.stack(table.coords_numpy(), -1), delimiter=",",
+               header="x,y,z", comments="", fmt="%.1f")
+
+
+def checked_launches(kernel_ms, name, checked, what):
+    """Fail unless every launch shape of ``name`` in ``kernel_ms`` (an
+    ``event_ms`` record per kernel) is one of ``checked``."""
+    got = set(kernel_ms[name]["by_shape"])
+    check(got <= checked, f"{what}: {name} launched at "
+          f"{sorted(got - checked)}, which phase 2 did not check")
+
+
+def phase_sift(torch, ot, checked, tmpdir):
+    """The feature-seeded DVC path through ``examples/dvc.run``'s
+    ``sift_icgn1`` workload (SIFT3D -> FeatureAffine3D(16) -> ICGN3D1(16) ->
+    save_table_3d, save_matrix_bin_3d) on the Torus-size pair built on the
+    card and a POI CSV, after a warm-up on a sub-volume; kernels 3 and 4
+    counted and timed per launch, every launch shape one of ``checked``
+    (phase 2's)."""
+    from opencorr_tpu_torch.examples import dvc
     from opencorr_tpu_torch.ops import desc3d, lattice3d
 
     t0 = time.perf_counter()
     ref, tar = sift_pair(torch, TORUS_SHAPE, seed=3, device="cuda")
     torch.cuda.synchronize()
     synth_ms = (time.perf_counter() - t0) * 1e3
-    pois = ot.poi_grid_3d(*TORUS_GRID, device="cuda")
+    pois = ot.poi_grid_3d(*TORUS_GRID, device="cpu")
     n = pois.n
     check(n == TORUS_GRID[1] * TORUS_GRID[2] * TORUS_GRID[3],
           f"Torus grid size {n}")
+    csv_in = os.path.join(tmpdir, "torus_pois.csv")
+    write_pois_csv(csv_in, pois)
     # warm-up on a sub-volume
     sub = (slice(0, 160), slice(0, 128), slice(0, 192))
-    run_sift_slice(torch, ot, ref[sub].contiguous(), tar[sub].contiguous(),
-                   ot.poi_grid_3d((40, 40, 40), 4, 2, 3, 30, device="cuda"),
-                   "cuda")
+    warm_csv = os.path.join(tmpdir, "warm_pois.csv")
+    write_pois_csv(warm_csv, ot.poi_grid_3d((40, 40, 40), 4, 2, 3, 30,
+                                            device="cpu"))
+    dvc.run("sift_icgn1", ref[sub].contiguous(), tar[sub].contiguous(),
+            warm_csv, os.path.join(tmpdir, "warm"), "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    desc3d.descriptor_hist.launches = 0
-    lattice3d.lattice_eval_3d.launches = 0
-    desc3d.descriptor_hist.events = []
-    lattice3d.lattice_eval_3d.events = []
-    csv = os.path.join(tmpdir, "torus.csv")
-    sift, seeded, out, ms, stats = run_sift_slice(torch, ot, ref, tar, pois,
-                                                  "cuda", csv_path=csv)
-    launches = {"descriptor_hist": desc3d.descriptor_hist.launches,
-                "lattice_eval_3d": lattice3d.lattice_eval_3d.launches}
-    kernel_ms = {"descriptor_hist": event_ms(desc3d.descriptor_hist),
-                 "lattice_eval_3d": event_ms(lattice3d.lattice_eval_3d)}
+    wrappers = (desc3d.descriptor_hist, lattice3d.lattice_eval_3d)
+    for fn in wrappers:
+        fn.launches = 0
+        fn.events = []
+    prefix = os.path.join(tmpdir, "torus")
+    info = {}
+    out, timer = dvc.run("sift_icgn1", ref, tar, csv_in, prefix, "cuda",
+                         stats=info)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    kernel_ms = {fn.__name__: event_ms(fn) for fn in wrappers}
     peak = torch.cuda.max_memory_allocated()
     for name, v in launches.items():
         check(v > 0, f"the SIFT path launched {name} no time")
+    stage_ms = {k: v * 1e3 for k, v in zip(timer.names, timer.seconds)}
+    for k in ("save_table_3d", "save_matrix_bin_3d"):
+        stage_ms[k] = info[f"{k}_s"] * 1e3
 
-    layers = [dict(st) for st in sift.layer_stats]
+    layers = info["sift3d_layers"]
     cap_hits = [st for st in layers if st["candidates"] > st["k_e"]
                 or st["oriented"] > st["k_d"]]
-    mk1, mk2 = sift.ref_matched_kp, sift.tar_matched_kp
+    mk1, mk2 = info["sift_matches"]
     med = np.median(mk2 - mk1, axis=0) if len(mk1) else np.full(3, np.nan)
-    fa = ot.table_to_numpy(seeded)
+    fa = ot.table_to_numpy(info["seeded"])
     t = ot.table_to_numpy(out)
     zn = t["r"][:, 3]
     conv = zn > 0.9
@@ -1158,17 +1242,17 @@ def phase_sift(torch, ot, tmpdir):
     du = np.abs(t["p"][conv, 0] - u)
     dv = np.abs(t["p"][conv, 4] - v)
     dw = np.abs(t["p"][conv, 8] - w)
-    with open(csv) as f:
+    with open(f"{prefix}_sift_icgn1.csv") as f:
         n_lines = sum(1 for _ in f)
+    rec, dims = ot.load_matrix_bin_3d(f"{prefix}_sift_icgn1.bin")
     res = dict(
         volume=list(TORUS_SHAPE), pois=n, r=TORUS_R, synth_ms=synth_ms,
-        ref_kp=sift.ref_kp_count, tar_kp=sift.tar_kp_count,
+        ref_kp=info["keypoints"][0], tar_kp=info["keypoints"][1],
         matches=int(len(mk1)), median_match_dxyz=[float(x) for x in med],
         matches_within_1=float(np.mean(np.all(np.abs(
             mk2 - mk1 - np.array(TORUS_UVW)) <= 1.0, axis=1))),
         cap_hits=cap_hits,
-        fa3d_codes={str(c): int((fa["r"][:, 3] == c).sum())
-                    for c in (0.0, -1.0, -2.0)},
+        fa3d_codes=info["feature_affine3d_codes"],
         fa3d_mean_abs_duvw=[float(np.abs(fa["p"][fa["r"][:, 3] == 0, col]
                                          - x).mean())
                             for col, x in ((0, u), (4, v), (8, w))],
@@ -1177,13 +1261,15 @@ def phase_sift(torch, ot, tmpdir):
         max_abs_duvw=float(max(du.max(), dv.max(), dw.max())),
         codes={str(c): int((zn == c).sum()) for c in (-1.0, -2.0, -3.0,
                                                        -4.0, -5.0)},
-        mean_iterations=float(t["r"][conv, 4].mean()), icgn_stats=stats,
-        launches=launches, kernel_event_ms=kernel_ms, stage_ms=ms,
-        peak_mem_mb=peak / 2**20,
-        csv_lines=n_lines)
+        mean_iterations=float(t["r"][conv, 4].mean()),
+        icgn_stats=info["icgn_stats"], writer=info["writer"],
+        launches=launches, kernel_event_ms=kernel_ms, stage_ms=stage_ms,
+        peak_mem_mb=peak / 2**20, csv_lines=n_lines)
     for st in layers:
         log(json.dumps({"sift_layer": st}))
     log(json.dumps({"sift_path": res}))
+    for name in ("descriptor_hist", "lattice_eval_3d"):
+        checked_launches(kernel_ms, name, checked[name], "the SIFT path")
     check(all(abs(m - x) <= 1.0 for m, x in zip(med, TORUS_UVW)),
           f"median matched displacement {med} vs {TORUS_UVW}")
     check(np.isfinite(t["p"][conv]).all(), "non-finite results")
@@ -1193,6 +1279,9 @@ def phase_sift(torch, ot, tmpdir):
           < 0.01, f"SIFT path displacement error {res['mean_abs_du']}, "
           f"{res['mean_abs_dv']}, {res['mean_abs_dw']}")
     check(n_lines == n + 1, f"Torus csv lines {n_lines}")
+    check(rec.shape == (n, 8) and dims == TORUS_SHAPE[::-1],
+          f"Torus matrix bin {rec.shape} {dims}")
+    check(info["writer"] == "native", f"table writer {info['writer']}")
     return res, launches
 
 
@@ -1424,11 +1513,11 @@ class StereoScene:
                     t2=project64(c2, tar), ref3d=ref, disp=tar - ref)
 
 
-def epipolar_reach(cams, src, dst):
+def epipolar_reach(cams, src, dst, parallax=STEREO_PARALLAX):
     """Distance (px) along view 2's epipolar line of each view-1 point
-    ``src`` from the projection of the parallax estimate to the true match
-    ``dst``, and its distance from the line (F from the undistorted
-    cameras, as EpipolarSearch uses it)."""
+    ``src`` from the projection of the parallax estimate (x, y; constants
+    or per point) to the true match ``dst``, and its distance from the line
+    (F from the undistorted cameras, as EpipolarSearch uses it)."""
     c1, c2 = cams
     k = lambda c: np.array([[c["fx"], c["fs"], c["cx"]], [0, c["fy"], c["cy"]],
                             [0, 0, 1.0]])
@@ -1437,8 +1526,8 @@ def epipolar_reach(cams, src, dst):
     f = np.linalg.inv(k(c2)).T @ tx @ c2["R"] @ np.linalg.inv(k(c1))
     line = np.concatenate([src, np.ones((len(src), 1))], 1) @ f.T
     slope, icp = -line[:, 0] / line[:, 1], -line[:, 2] / line[:, 1]
-    ex = src[:, 0] + STEREO_PARALLAX[0]
-    ey = src[:, 1] + STEREO_PARALLAX[1]
+    ex = src[:, 0] + parallax[0]
+    ey = src[:, 1] + parallax[1]
     xv = (slope * (ey - icp) + ex) / (slope * slope + 1)
     xd = (slope * (dst[:, 1] - icp) + dst[:, 0]) / (slope * slope + 1)
     along = (xd - xv) * np.sqrt(1 + slope * slope)
@@ -1488,6 +1577,22 @@ def displacement_bound(cams, pts, truth, px=STEREO_TOL_PX):
     return float(total.mean())
 
 
+def reconstruction_bound(cams, pts, r2, px=STEREO_TOL_PX):
+    """Mean over POIs of the largest change of the triangulated point when
+    each of the two matched view-2 coordinates moves by ``px``: the sum of
+    |d point / d coordinate| * px, by central differences."""
+    p1 = pts.astype(np.float64)
+    total = np.zeros(len(pts))
+    for axis in (0, 1):
+        moved = []
+        for sign in (1.0, -1.0):
+            m = r2.copy()
+            m[:, axis] += sign * px
+            moved.append(triangulate64(cams, p1, m))
+        total += np.linalg.norm(moved[0] - moved[1], axis=1) / 2.0
+    return float(total.mean())
+
+
 def stereo_grid_points(grid):
     (x0, y0), nx, ny, step = grid
     gx, gy = np.meshgrid(x0 + step * np.arange(nx), y0 + step * np.arange(ny))
@@ -1519,6 +1624,136 @@ def stereo_calibrations(ot, device, offset=(0, 0)):
         out.append(ot.Calibration(ot.CameraIntrinsics(**i),
                                   ot.CameraExtrinsics(**extr), device=device))
     return out
+
+
+# --- the surface of the reconstruction example ----------------------------
+
+# The reconstruction example (examples/reconstruction_epipolar.py) fits a
+# bilinear parallax to SIFT matches and searches only +-6 px around it.  A
+# plane seen through the GT4 cameras (19 degrees apart) has a parallax that
+# no bilinear model follows: the best fit leaves 74% of a full-size grid's
+# truths more than 6 px along the epipolar line from it.  So the surface is
+# curved: every view-1 pixel's ray meets it where the view-2 x parallax is
+# RECON_PARALLAX_X, a bilinear function of the view-1 position about the
+# GT4 sensor's centre (a, b, c of p = a (x - 960) + b (y - 600) + c; the
+# best fit of a plane at the stereo scene's depth), 378-395 mm deep.
+RECON_PARALLAX_X = (-0.0056, -0.0054, -44.5)
+RECON_MARGIN = 100  # view-1 pixels of surface past each side of the image
+RECON_MAP_STEP = 4  # pixel step of the forward map that view 2 inverts
+
+
+def recon_grid(size):
+    """The example's POI grid of a view of ``size`` [H, W]."""
+    h, w = size
+    return ((100, 100), (w - 200) // 5, (h - 200) // 5, 5)
+
+
+class ReconScene:
+    """The reconstruction example's specimen, seen by ``cams`` (two
+    ``stereo_camera`` dicts) in views of ``size`` [H, W] (a smaller size
+    sees the sensors' top-left corners).  The speckle (STEREO_SPECKLE
+    cells of one view-1 pixel, 128 +- 28 grey levels) lies on the surface
+    at its view-1 pixel coordinates, so view 1 shows it as it is; view 2
+    is rendered by inverse mapping (pixel -> the view-1 point whose
+    surface point it sees, by fixed-point iteration on the forward map)."""
+
+    def __init__(self, cams, size, seed):
+        from scipy.ndimage import gaussian_filter, spline_filter
+
+        self.cams, self.size = cams, size
+        h, w = size
+        m = RECON_MARGIN
+        rng = np.random.default_rng(seed)
+        tex = gaussian_filter(rng.standard_normal((h + 2 * m, w + 2 * m)),
+                              STEREO_SPECKLE)
+        self.raw = tex / tex.std() * 28.0 + 128.0
+        self.tex = spline_filter(self.raw, order=3)
+        # the forward map view 1 -> view 2 on a coarse grid of the extended
+        # image (linear interpolation between its nodes errs by about 5e-5
+        # px: the map's second derivatives are about 2e-5 px/px^2)
+        st = RECON_MAP_STEP
+        yy, xx = np.mgrid[-m:h + m + st:st, -m:w + m + st:st].astype(
+            np.float64)
+        self.fwd = self.match(np.stack([xx.ravel(), yy.ravel()], -1)).T \
+            .reshape((2,) + xx.shape)
+
+    def match(self, pts, iters=12):
+        """View-1 points [N, 2] -> their view-2 positions [N, 2]: the depth
+        along each view-1 ray where the x parallax is RECON_PARALLAX_X
+        (secant steps from the stereo scene's depth)."""
+        c1, c2 = self.cams
+        a, b, c = RECON_PARALLAX_X
+        out = np.empty_like(pts, dtype=np.float64)
+        for lo in range(0, len(pts), 1 << 20):
+            x, y = (pts[lo:lo + (1 << 20), k].astype(np.float64)
+                    for k in (0, 1))
+            o, d = pixel_rays(c1, x, y)
+            target = x + a * (x - 960.0) + b * (y - 600.0) + c
+            s = np.full(len(x), 387.0)
+            proj = lambda s: project64(c2, o + d * s[:, None])
+            p = proj(s)
+            for _ in range(iters):
+                slope = proj(s + 1.0)[:, 0] - p[:, 0]
+                s = s - (p[:, 0] - target) / slope
+                p = proj(s)
+            out[lo:lo + len(x)] = p
+        return out
+
+    def render(self, view):
+        """One 8-bit view [H, W]."""
+        from scipy.ndimage import map_coordinates
+
+        h, w = self.size
+        m = RECON_MARGIN
+        if view == 0:
+            val = self.raw[m:m + h, m:m + w]
+        else:
+            vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
+            u, v = uu.ravel(), vv.ravel()
+            x1, y1 = u - RECON_PARALLAX_X[2], v + 40.0  # a first guess
+            top = [n - 1 for n in self.fwd.shape[1:]]
+            for _ in range(5):
+                at = [np.clip((y1 + m) / RECON_MAP_STEP, 0, top[0]),
+                      np.clip((x1 + m) / RECON_MAP_STEP, 0, top[1])]
+                x1 = x1 + (u - map_coordinates(self.fwd[0], at, order=1))
+                y1 = y1 + (v - map_coordinates(self.fwd[1], at, order=1))
+            val = map_coordinates(self.tex, [y1 + m, x1 + m], order=3,
+                                  mode="nearest", prefilter=False
+                                  ).reshape(h, w)
+        return np.clip(np.round(val), 0, 255).astype(np.uint8)
+
+
+def recon_inputs(size=STEREO_SIZE, seed=13):
+    """The two 8-bit views of the reconstruction scene at ``size``, the
+    example's view-1 POIs [N, 2] float32, their true view-2 matches and the
+    scene."""
+    cams = [stereo_camera(*c) for c in STEREO_CAMS]
+    scene = ReconScene(cams, size, seed)
+    pts = stereo_grid_points(recon_grid(size))
+    return ([scene.render(0), scene.render(1)], pts,
+            scene.match(pts.astype(np.float64)), scene)
+
+
+def recon_sift_matches(scene, n, seed):
+    """``n`` exact matches (view-1 points and their view-2 positions) on
+    the view-1 image, float32, in place of SIFT2D's."""
+    h, w = scene.size
+    rng = np.random.default_rng(seed)
+    kp = rng.uniform((40, 40), (w - 40, h - 40), (n, 2))
+    return kp.astype(np.float32), scene.match(kp).astype(np.float32)
+
+
+def epipolar_reach_bilinear(cams, src, dst, cx, cy, size):
+    """``epipolar_reach`` about the bilinear parallax estimate (cx, cy) of
+    EpipolarSearch.set_parallax (centred at the view's W//2, H//2): the
+    distance (px) along view 2's epipolar line from the estimate's
+    projection to the true match, for each view-1 point."""
+    h, w = size
+    ex = src[:, 0] + cx[0] * (src[:, 0] - w // 2) + cx[1] * (
+        src[:, 1] - h // 2) + cx[2]
+    ey = src[:, 1] + cy[0] * (src[:, 0] - w // 2) + cy[1] * (
+        src[:, 1] - h // 2) + cy[2]
+    return epipolar_reach(cams, src, dst, (ex - src[:, 0], ey - src[:, 1]))[0]
 
 
 # The crop of phases 10 and 11 [y0, x0, h, w] and its POIs (view-1 grid
@@ -2027,6 +2262,242 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
     return results, launches
 
 
+# --- this slice: the DVC example, sharded DVC, the reconstruction example --
+
+
+def phase_dvc_example(torch, ot, vref, vtar, dvc_refined, checked, tmpdir):
+    """``examples/dvc.run``'s ``fftcc_icgn1`` workload on ``.bin`` files of
+    phase 5's volumes with phase 5's grid as a POI CSV (r=30), then its
+    ``strain`` workload on the table just written; kernel 3 counted and
+    timed per launch.  Checks the table against phase 5's, phase 5's
+    gates, the strain, the writers and that every launch shape is one of
+    ``checked``."""
+    from opencorr_tpu_torch.examples import dvc
+    from opencorr_tpu_torch.ops import lattice3d
+
+    paths = [os.path.join(tmpdir, f"{name}.bin") for name in ("ref", "tar")]
+    for path, vol in zip(paths, (vref, vtar)):
+        vol.save_bin(path)
+    pois = ot.poi_grid_3d(*DVC_GRID, device="cpu")
+    csv_in = os.path.join(tmpdir, "al_foam4_pois.csv")
+    write_pois_csv(csv_in, pois)
+    prefix = os.path.join(tmpdir, "dvc_example")
+    wrapper = lattice3d.lattice_eval_3d
+    wrapper.launches = 0
+    wrapper.events = []
+    info = {}
+    out, timer = dvc.run("fftcc_icgn1", *paths, csv_in, prefix, "cuda",
+                         stats=info)
+    launches = {"lattice_eval_3d": wrapper.launches}
+    kernel_ms = {"lattice_eval_3d": event_ms(wrapper)}
+    sinfo = {}
+    strained, stimer = dvc.run("strain", f"{prefix}_fftcc_icgn1.csv",
+                               out_prefix=prefix, device="cuda", stats=sinfo)
+    t = ot.table_to_numpy(out)
+    zn = t["r"][:, 3]
+    conv = zn > 0.9
+    ut, vt, wt = true_uvw(t["z"].astype(np.float64))
+    du = np.abs(t["p"][conv, 0] - ut)
+    dv = np.abs(t["p"][conv, 4] - vt)
+    dw = np.abs(t["p"][conv, 8] - wt[conv])
+    ezz = strained.e[strained.zncc > 0.9, 2].cpu().numpy()
+    diff = {f: float(np.abs(t[f] - dvc_refined[f]).max())
+            for f in ("p", "r")}
+    same = all(np.array_equal(t[f], dvc_refined[f], equal_nan=True)
+               for f in ("x", "y", "z", "p", "r", "sr"))
+    rec, dims = ot.load_matrix_bin_3d(f"{prefix}_fftcc_icgn1.bin")
+    res = dict(
+        pois=int(out.n), r=DVC_R, converged_frac=float(conv.mean()),
+        mean_abs_du=float(du.mean()), mean_abs_dv=float(dv.mean()),
+        mean_abs_dw=float(dw.mean()), mean_ezz=float(ezz.mean()),
+        imposed_ezz=DVC_STRAIN, equals_phase5=same, max_diff_phase5=diff,
+        stage_ms={k: v * 1e3 for k, v in zip(timer.names, timer.seconds)},
+        strain_stage_ms={k: v * 1e3 for k, v in zip(stimer.names,
+                                                     stimer.seconds)},
+        save_ms={k: info[f"{k}_s"] * 1e3 for k in ("save_table_3d",
+                                                   "save_matrix_bin_3d")},
+        writer=[info["writer"], sinfo["writer"]],
+        icgn_stats=info["icgn_stats"], launches=launches,
+        kernel_event_ms=kernel_ms)
+    log(json.dumps({"dvc_example": res}))
+    check(launches["lattice_eval_3d"] > 0,
+          "the DVC example launched lattice_eval_3d no time")
+    checked_launches(kernel_ms, "lattice_eval_3d", checked, "the DVC example")
+    check(same, f"the example's fftcc_icgn1 table differs from phase 5's: "
+          f"{diff}")
+    check(res["converged_frac"] >= 0.9, f"converged {res['converged_frac']}")
+    check(max(res["mean_abs_du"], res["mean_abs_dv"], res["mean_abs_dw"])
+          < 0.01, "DVC example displacement error")
+    check(abs(res["mean_ezz"] - DVC_STRAIN) < 1e-3,
+          f"DVC example ezz {res['mean_ezz']} vs {DVC_STRAIN}")
+    check(rec.shape == (out.n, 8) and dims == DVC_SHAPE[::-1], "matrix bin")
+    check(res["writer"] == ["native", "native"], f"writers {res['writer']}")
+    return res, launches
+
+
+def phase_sharded(torch, ot, vref, vtar, dvc_seeded, dvc_refined, checked,
+                  r_cmp=16):
+    """ShardedICGN3D1 on an NCCL group of one (``make_mesh(1, axis="z")``)
+    on phase 5's volumes and FFTCC3D seeds, against phase 5's ICGN3D1
+    table: codes equal, u/v/w within 1e-5 voxel; kernel 3 counted and its
+    launch shapes one of ``checked``.  Then 64 POIs at r=``r_cmp`` on cuda
+    and on the same group's cpu mesh, four of them near the z faces (the z
+    guards and the global edge guard fail them -3): codes equal, u/v/w
+    within 1e-3 voxel.  Ends the process group it made."""
+    from opencorr_tpu_torch.ops import lattice3d
+    from opencorr_tpu_torch.parallel import halo, mesh
+
+    mesh_gpu = mesh.make_mesh(1, axis="z")
+    s = dvc_seeded
+    table = ot.table_from_numpy_3d(s["x"], s["y"], s["z"], s["p"], s["r"],
+                                   s["e"], s["sr"], device="cuda")
+    m = halo.ShardedICGN3D1(DVC_R, DVC_R, DVC_R, 0.001, 10)
+    m.set_images(vref, vtar)
+    m.compute(table.map(lambda a: a[:512]), mesh_gpu)  # warm-up
+    torch.cuda.synchronize()
+    wrapper = lattice3d.lattice_eval_3d
+    wrapper.launches = 0
+    wrapper.events = []
+    m.stats.clear()
+    t0 = time.perf_counter()
+    out = ot.table_to_numpy(m.compute(table, mesh_gpu))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"lattice_eval_3d": wrapper.launches}
+    kernel_ms = {"lattice_eval_3d": event_ms(wrapper)}
+    zs, zb = out["r"][:, 3], dvc_refined["r"][:, 3]
+    codes = np.array_equal(np.where(zs < 0, zs, 1), np.where(zb < 0, zb, 1))
+    d = float(np.abs(out["p"][:, [0, 4, 8]]
+                     - dvc_refined["p"][:, [0, 4, 8]]).max())
+    res = dict(pois=len(zs), halo=m.halo, ranks=1,
+               backend=torch.distributed.get_backend(), wall_ms=wall_ms,
+               stage_ms={k.replace("_s", "_ms"): v * 1e3
+                         for k, v in m.times.items()},
+               stats=dict(m.stats), codes_equal_phase5=codes,
+               max_abs_duvw_phase5=d,
+               converged_frac=float((zs > 0.9).mean()), launches=launches,
+               kernel_event_ms=kernel_ms)
+    # cuda against cpu on 64 POIs: 60 of the grid with phase 5's seeds,
+    # and four at the z faces seeded at the rounded field: the subsets of
+    # the first three touch the faces, so their warped samples reach below
+    # z=1 or to dim-2 and the z guards fail them; the last crosses the top
+    # face (the global edge guard)
+    keep = np.linspace(0, len(zs) - 1, 60).astype(np.int64)
+    dz = DVC_SHAPE[0]
+    face_z = np.float32([r_cmp, r_cmp, dz - 1 - r_cmp, dz - r_cmp])
+    mid = DVC_SHAPE[2] // 2
+    face_x = np.float32([mid, mid - 7, mid, mid - 7])
+    xyz = [np.concatenate([s[a][keep], f]) for a, f in (
+        ("x", face_x), ("y", face_x), ("z", face_z))]
+    p = np.concatenate([s["p"][keep], np.zeros((4, 12), np.float32)])
+    for col, val in zip((0, 4, 8), true_uvw(face_z.astype(np.float64))):
+        p[60:, col] = np.round(val)
+    outs, stats = {}, {}
+    for dev, msh in (("cuda", mesh_gpu),
+                     ("cpu", mesh.make_mesh(1, axis="z", device="cpu"))):
+        c = halo.ShardedICGN3D1(r_cmp, r_cmp, r_cmp, 0.001, 10)
+        c.set_images(vref, vtar)
+        outs[dev] = ot.table_to_numpy(c.compute(ot.table_from_numpy_3d(
+            *xyz, p, np.zeros((64, 7), np.float32),
+            np.zeros((64, 6), np.float32), np.zeros((64, 3), np.float32),
+            device=dev), msh))
+        stats[dev] = dict(c.stats)
+    zc, zp = outs["cuda"]["r"][:, 3], outs["cpu"]["r"][:, 3]
+    both = (zc > 0) & (zp > 0)
+    res.update(cmp_pois=64, cmp_r=r_cmp,
+               cmp_codes_equal=bool(np.array_equal(np.where(zc < 0, zc, 1),
+                                                   np.where(zp < 0, zp, 1))),
+               cmp_face_codes=[float(x) for x in zc[60:]],
+               cmp_max_abs_duvw=float(np.abs(
+                   outs["cuda"]["p"][both][:, [0, 4, 8]]
+                   - outs["cpu"]["p"][both][:, [0, 4, 8]]).max()),
+               cmp_converged=int(both.sum()), cmp_stats=stats)
+    log(json.dumps({"sharded_dvc": res}))
+    check(launches["lattice_eval_3d"] > 0,
+          "the sharded path launched lattice_eval_3d no time")
+    checked_launches(kernel_ms, "lattice_eval_3d", checked, "sharded DVC")
+    check(codes, "sharded codes differ from phase 5's")
+    check(d <= 1e-5, f"sharded u/v/w differ from phase 5's by {d}")
+    check(res["cmp_codes_equal"], "sharded codes differ between cuda and cpu")
+    check(res["cmp_converged"] > 0 and res["cmp_max_abs_duvw"] <= 1e-3,
+          f"sharded cuda vs cpu u/v/w {res['cmp_max_abs_duvw']}")
+    check(all(c == -3.0 for c in res["cmp_face_codes"]),
+          f"POIs at the z faces: codes {res['cmp_face_codes']}")
+    torch.distributed.destroy_process_group()
+    return res, launches
+
+
+def phase_reconstruction(torch, ot, views, pts, truth, scene, checked,
+                         tmpdir):
+    """``examples/reconstruction_epipolar.run(use_sift=True)`` on the
+    GT4-size views of the reconstruction scene, after a warm-up on their
+    top-left 300x400 crop; kernel 1 counted and timed per launch, every
+    launch shape one of ``checked``.  Prints the fitted parallax, the
+    epipolar reach of every truth from the fitted estimate (how many lie
+    past the search's 6 px) and the stage times.  Gates: ZNCC > 0.9 on at
+    least 0.9 of the POIs, mean |view-2 position - truth| < 0.02 px, mean
+    3D error below ``displacement_bound`` for 0.02 px."""
+    from opencorr_tpu_torch.examples import reconstruction_epipolar as rec
+    from opencorr_tpu_torch.ops import gather2d
+
+    h, w = STEREO_SIZE
+    # the reach of the model fitted to exact matches, before the run
+    cx, cy = rec.fit_parallax(*recon_sift_matches(scene, 4000, seed=5), w, h)
+    reach = epipolar_reach_bilinear(scene.cams, pts.astype(np.float64),
+                                    truth, cx, cy, (h, w))
+    log(json.dumps({"recon_scene": dict(
+        pois=int(len(pts)), exact_fit_x=cx.tolist(), exact_fit_y=cy.tolist(),
+        reach_px=[float(reach.min()), float(reach.max())],
+        past_search=int((np.abs(reach) > 6.0).sum()))}))
+    rec.run(True, *(v[:300, :400] for v in views),
+            os.path.join(tmpdir, "warm.csv"), "cuda")
+    torch.cuda.synchronize()
+    wrapper = gather2d.gather_windows_2d
+    wrapper.launches = 0
+    wrapper.events = []
+    info = {}
+    rows, timer = rec.run(True, *views, os.path.join(tmpdir, "rec.csv"),
+                          "cuda", stats=info)
+    launches = {"gather_windows_2d": wrapper.launches}
+    kernel_ms = {"gather_windows_2d": event_ms(wrapper)}
+    cx, cy = info["parallax_x"], info["parallax_y"]
+    reach = epipolar_reach_bilinear(scene.cams, pts.astype(np.float64),
+                                    truth, cx, cy, (h, w))
+    ok = rows[:, 5] > 0.9
+    got = info["view2_points"].cpu().numpy()
+    pos = np.abs(got - truth).sum(1)
+    world = triangulate64(scene.cams, pts.astype(np.float64), truth)
+    err3 = np.linalg.norm(rows[ok, 2:5] - world[ok], axis=1)
+    bound = reconstruction_bound(scene.cams, pts[ok], truth[ok])
+    res = dict(
+        size=[h, w], pois=int(len(rows)), matches=info["matches"],
+        parallax_x=cx, parallax_y=cy,
+        reach_px=[float(reach.min()), float(reach.max())],
+        past_search=int((np.abs(reach) > 6.0).sum()),
+        converged_frac=float(ok.mean()),
+        mean_abs_position_px=float(np.abs(got[ok] - truth[ok]).mean()),
+        max_position_px=float(pos[ok].max()),
+        mean_3d_err_mm=float(err3.mean()), err_bound_mm=bound,
+        codes={str(c): int((rows[:, 5] == c).sum())
+               for c in (-1.0, -3.0, -4.0, -5.0)},
+        stage_ms={k: v * 1e3 for k, v in zip(timer.names, timer.seconds)},
+        epipolar_icgn=info["epipolar_icgn"], launches=launches,
+        kernel_event_ms=kernel_ms)
+    for st in info["sift2d_octaves"]:
+        log(json.dumps({"recon_sift2d_octave": st}))
+    log(json.dumps({"reconstruction": res}))
+    check(launches["gather_windows_2d"] > 0,
+          "the reconstruction launched gather_windows_2d no time")
+    checked_launches(kernel_ms, "gather_windows_2d", checked,
+                     "the reconstruction")
+    check(res["converged_frac"] >= 0.9,
+          f"reconstruction converged {res['converged_frac']}")
+    check(res["mean_abs_position_px"] < STEREO_TOL_PX,
+          f"reconstruction position error {res['mean_abs_position_px']}")
+    check(res["mean_3d_err_mm"] < bound,
+          f"reconstruction 3D error {res['mean_3d_err_mm']} >= {bound}")
+    return res, launches
+
+
 def main() -> int:
     import torch
 
@@ -2079,6 +2550,12 @@ def main() -> int:
         records[k] += dic_records[k]
     checked = ({tuple(r["shape"]) for r in records["gather"]},
                {(*r["shape"], r["d_wobble"]) for r in records["lattice"]})
+    # launch shapes as the wrappers record them
+    checked_3d = {
+        "lattice_eval_3d": {"x".join(map(str, (*r["shape"], r["d_wobble"])))
+                            for r in records["lattice3d"]},
+        "descriptor_hist": {r["launch"] for r in records["desc"]}}
+    checked_gathers = {"x".join(map(str, g)) for g in checked[0]}
 
     # phase 3: the main path
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -2092,21 +2569,22 @@ def main() -> int:
 
     # phase 5: the DVC path
     t0 = time.perf_counter()
-    vref, vtar = speckle_volumes(seed=2)
+    vref8, vtar8 = speckle_volumes(seed=2)
     log(json.dumps({"dvc_volumes_s": time.perf_counter() - t0}))
-    vref, vtar = ot.Image3D.from_array(vref), ot.Image3D.from_array(vtar)
+    vref, vtar = ot.Image3D.from_array(vref8), ot.Image3D.from_array(vtar8)
     with tempfile.TemporaryDirectory() as tmpdir:
-        dvc_res, dvc_launches = phase_dvc(torch, ot, vref, vtar, tmpdir)
+        dvc_res, dvc_launches, dvc_seeded, dvc_refined = phase_dvc(
+            torch, ot, vref, vtar, tmpdir)
     by_path = {"2d": dict(launches), "dvc": dict(dvc_launches)}
     launches.update(dvc_launches)
 
     # phase 6: the DVC modules on cuda against the cpu
     phase_dvc_cpu_agreement(torch, ot, vref, vtar)
-    del vref, vtar
 
-    # phase 7: the feature-seeded DVC path at the Torus dimensions
+    # phase 7: the feature-seeded DVC path at the Torus dimensions, through
+    # examples/dvc.py
     with tempfile.TemporaryDirectory() as tmpdir:
-        sift_res, sift_launches = phase_sift(torch, ot, tmpdir)
+        sift_res, sift_launches = phase_sift(torch, ot, checked_3d, tmpdir)
     torch.cuda.empty_cache()
     by_path["sift"] = dict(sift_launches)
     launches["descriptor_hist"] = sift_launches["descriptor_hist"]
@@ -2139,13 +2617,43 @@ def main() -> int:
         dic_res, dic_launches = phase_dic2d(torch, ot, pairs, main_table,
                                             checked, tmpdir)
     by_path["dic2d"] = dict(dic_launches)
+    del pairs
+    torch.cuda.empty_cache()
 
-    # phase 13: the records
+    # phase 13: the DVC example's fftcc_icgn1 and strain at al_foam4's size
+    with tempfile.TemporaryDirectory() as tmpdir:
+        dvx_res, dvx_launches = phase_dvc_example(
+            torch, ot, vref, vtar, dvc_refined,
+            checked_3d["lattice_eval_3d"], tmpdir)
+    by_path["dvc_example"] = dict(dvx_launches)
+    del vref, vtar
+
+    # phase 14: sharded DVC on a group of one
+    shard_res, shard_launches = phase_sharded(
+        torch, ot, vref8, vtar8, dvc_seeded, dvc_refined,
+        checked_3d["lattice_eval_3d"])
+    by_path["sharded"] = dict(shard_launches)
+    del vref8, vtar8
+    torch.cuda.empty_cache()
+
+    # phase 15: the reconstruction example at GT4's size
+    t0 = time.perf_counter()
+    rviews, rpts, rtruth, rscene = recon_inputs()
+    log(json.dumps({"recon_render_s": time.perf_counter() - t0}))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        recon_res, recon_launches = phase_reconstruction(
+            torch, ot, rviews, rpts, rtruth, rscene, checked_gathers, tmpdir)
+    by_path["reconstruction"] = dict(recon_launches)
+
+    # phase 16: the records
     path_ms = {"dvc": dvc_res["kernel_event_ms"],
                "sift": sift_res["kernel_event_ms"],
                "stereo": stereo_res["kernel_event_ms"],
                "dic2d": merge_event_ms([r["kernel_event_ms"]
-                                        for r in dic_res.values()])}
+                                        for r in dic_res.values()]),
+               "dvc_example": dvx_res["kernel_event_ms"],
+               "sharded": shard_res["kernel_event_ms"],
+               "reconstruction": recon_res["kernel_event_ms"]}
     def summary(name, route, source, replaces, recs, ref_shape, **pick):
         r = next(x for x in recs if x["shape"] == ref_shape
                  and all(x.get(k) == v for k, v in pick.items()))
@@ -2177,7 +2685,8 @@ def main() -> int:
         summary("descriptor_hist", "cuda",
                 "opencorr_tpu_torch/csrc/desc3d.cu",
                 "opencorr_tpu/ops/pallas_desc.py:87", records["desc"],
-                [TORUS_KEPT[2], 73, 73, 73], volume="blurred", units=[1.0] * 3),
+                [TORUS_DESC[3][0], 73, 73, 73], volume="blurred",
+                units=[1.0] * 3),
     ]
     log(json.dumps({"stage_ms": main_res["stage_ms"],
                     "dvc_stage_ms": dvc_res["stage_ms"],
@@ -2185,6 +2694,9 @@ def main() -> int:
                     "stereo_stage_ms": stereo_res["stage_ms"],
                     "dic2d_stage_s": {wl: r["stage_s"]
                                       for wl, r in dic_res.items()},
+                    "dvc_example_stage_ms": dvx_res["stage_ms"],
+                    "sharded_stage_ms": shard_res["stage_ms"],
+                    "reconstruction_stage_ms": recon_res["stage_ms"],
                     "total_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

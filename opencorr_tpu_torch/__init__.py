@@ -13,7 +13,13 @@ ICGN2D2, SIFT2D -> FeatureAffine2D -> ICGN2D1, triangulation, stereo
 strain; ``examples/stereo_3d_dic_epipolar_sift.py``), and the planar
 example suite (``examples/dic_2d.py``): the refiners ICGN2D1/2, ICLM2D1/2
 and NR2D1, self-adaptive subsets (FeatureAffine2D, ICGN2D1/2, ICLM2D1/2),
-``utils/timing.StageTimer`` and the native table codec.
+``utils/timing.StageTimer`` and the native table codec; the DVC and
+surface-reconstruction examples (``examples/dvc.py``,
+``examples/reconstruction_epipolar.py``), ``utils/speckle_quality`` and
+multi-GPU execution on ``torch.distributed`` (``parallel.mesh``: POI
+batches over a mesh; ``parallel.halo.ShardedICGN3D1``: z-sharded DVC).
+As in the JAX package, the multi-GPU layer and the examples are imported
+from their modules, not from here.
 """
 
 from .utils import precision as _precision  # noqa: F401  (pins full f32)

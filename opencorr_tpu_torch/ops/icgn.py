@@ -773,18 +773,20 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     of half-extent r+M and the lattice kernel (:func:`_lattice_eval3d`),
     where a sample leaving its window reads as out of range (-3).  The
     convergence norm takes the displacement increments only
-    (oc_icgn.cpp:1445).  ``stats``, when given, counts iterations, lattice
-    launches and fallback iterations.  It computes in the volumes' dtype:
-    float32 as the package runs it, float64 for a reference replay on the
-    CPU."""
+    (oc_icgn.cpp:1445).  ``z_guard_lo``/``z_guard_hi`` (floats; None or
+    +-inf turns a side off) tighten the range guard along z, as the sharded
+    DVC path needs on a halo-extended block: a warped sample with
+    z < lo or z >= hi fails its POI with -3.  ``stats``, when given, counts
+    iterations, lattice launches and fallback iterations.  It computes in
+    the volumes' dtype: float32 as the package runs it, float64 for a
+    reference replay on the CPU."""
     if eval_mode != "lattice":
         raise NotImplementedError(
             f"icgn3d1: eval_mode={eval_mode!r} is the TPU's tile-LUT layout "
             "and is not ported; the port evaluates with the lattice kernel")
-    if z_guard_lo is not None or z_guard_hi is not None:
-        raise NotImplementedError(
-            "icgn3d1: z guards belong to the sharded DVC path, which is not "
-            "ported yet")
+    z_guarded = z_guard_lo is not None or z_guard_hi is not None
+    z_lo = -float("inf") if z_guard_lo is None else float(z_guard_lo)
+    z_hi = float("inf") if z_guard_hi is None else float(z_guard_hi)
     dz_, dy_, dx_ = ref_vol.shape
     dev = ref_vol.device
     fdt = ref_vol.dtype
@@ -852,9 +854,15 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
                                  + wmat[:, row, 2, None] * zl
                                  + wmat[:, row, 3, None])
 
-        tval = eval_tar(coord(0, xs), coord(1, ys), coord(2, zs), active)
-        # A negative sample, the -1 sentinel included, fails the POI.
-        fail_now = torch.any(tval < 0.0, dim=1) & active
+        gzc = coord(2, zs)
+        tval = eval_tar(coord(0, xs), coord(1, ys), gzc, active)
+        # A negative sample, the -1 sentinel included, fails the POI, as
+        # does a sample past the z guards.
+        fail_any = torch.any(tval < 0.0, dim=1)
+        if z_guarded:
+            fail_any |= torch.any((gzc < z_lo) | (gzc >= z_hi), dim=1)
+        del gzc
+        fail_now = fail_any & active
 
         tar_zm = tval - tval.mean(dim=1, keepdim=True)
         del tval

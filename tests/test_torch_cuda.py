@@ -11,9 +11,10 @@ exercise its ring of staged planes), and exactly 0 where a placement
 offset is out of range.  The SIFT3D descriptor histogram: within 1e-5 x
 max|S| (float atomics sum in an order that varies from run to run), on
 white noise and on blurred volumes.  Gather and lattice also at the
-planar suite's r=12 shapes, the lattice there ``==``.  The DVC modules,
-the SIFT3D slice and the planar refiners: cuda against cpu on small
-pairs."""
+planar suite's r=12 shapes, the lattice there ``==``; the gather at the
+reconstruction search's chunk.  The DVC modules, the SIFT3D slice, the
+planar refiners, the z-guarded icgn3d1 and ShardedICGN3D1 on a group of
+one: cuda against cpu on small pairs."""
 
 import collections
 
@@ -533,3 +534,102 @@ def test_planar_refiners_cuda_match_cpu(cuda):
                                    outs["cpu"]["p"][:, [0, 6]], rtol=0,
                                    atol=1e-3)
         assert (zp > 0.9).mean() > 0.9
+
+
+@pytest.mark.cuda
+def test_gather_kernel_reconstruction_windows(cuda):
+    """Kernel 1 at the reconstruction search's 41x41 candidate subsets (one
+    chunk: 2,340 POIs x 7 candidates) on a GT4-size image."""
+    rng = np.random.default_rng(43)
+    img = torch.from_numpy(np.round(rng.uniform(0, 255, (1200, 1920))).astype(
+        np.float32))
+    y0, x0 = (torch.from_numpy(a) for a in _corners(16380, 1200, 1920, 41,
+                                                    41, seed=43, low=-41))
+    got = gather2d.gather_windows_2d(img.to(cuda), y0.to(cuda), x0.to(cuda),
+                                     sh=41, sw=41)
+    torch.cuda.synchronize()
+    want = gather2d.gather_windows_2d_plain(img, y0, x0, sh=41, sw=41)
+    assert torch.equal(got.cpu(), want)
+
+
+def _guard_volumes():
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    rng = np.random.default_rng(12)
+    shape = (48, 40, 44)
+    base = gaussian_filter(rng.standard_normal(shape), 1.5)
+    ref = np.clip(np.round(base / base.std() * 28 + 128), 0, 255)
+    zz, yy, xx = np.mgrid[0:48, 0:40, 0:44].astype(np.float64)
+    tar = map_coordinates(ref, [zz - 0.6, yy + 0.3, xx - 0.4], order=3,
+                          mode="nearest")
+    return ref.astype(np.float32), np.round(tar).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_z_guarded_icgn3d1_cuda_matches_cpu(cuda):
+    """icgn3d1 with z guards through kernel 3 on cuda against the plain
+    lattice eval on the cpu: codes equal (some POIs fail at the guards),
+    u/v/w within 1e-4 voxel."""
+    from opencorr_tpu_torch.ops import bspline, gradient, icgn
+
+    ref, tar = _guard_volumes()
+    n, r = 12, 5
+    xs = np.full(n, 21.0, np.float32)
+    ys = np.full(n, 19.0, np.float32)
+    zs = np.linspace(10, 37, n).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.from_numpy(a.copy()).to(dev)
+        tref = t(ref)
+        outs[dev] = [a.cpu().numpy() for a in icgn.icgn3d1(
+            *(getattr(gradient, f"gradient_{a}_3d")(tref) for a in "xyz"),
+            tref, bspline.tricubic_prepare(t(tar)), t(xs), t(ys), t(zs),
+            t(np.zeros((n, 12), np.float32)), t(np.zeros(n, np.float32)),
+            0.001, 10.0, rx=r, ry=r, rz=r, window_margin=8,
+            z_guard_lo=14.5, z_guard_hi=33.5)]
+    zc, zp = outs["cuda"][4], outs["cpu"][4]
+    np.testing.assert_array_equal(np.where(zc < 0, zc, 1),
+                                  np.where(zp < 0, zp, 1))
+    assert (zp == -3.0).any() and (zp > 0.9).sum() >= 3
+    np.testing.assert_allclose(outs["cuda"][0][:, [0, 4, 8]],
+                               outs["cpu"][0][:, [0, 4, 8]], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_icgn3d1_one_rank_cuda_matches_cpu(cuda):
+    """ShardedICGN3D1 on an NCCL group of one (``make_mesh(1, axis="z")``)
+    against the same group's cpu mesh, POIs near both z faces included:
+    codes equal, u/v/w within 1e-4 voxel."""
+    import torch.distributed as dist
+
+    import opencorr_tpu_torch as ot
+    from opencorr_tpu_torch.parallel import halo, mesh
+
+    ref, tar = _guard_volumes()
+    z = np.float32([5.0, 6.0, 24.0, 24.0, 41.0, 42.0])
+    xy = np.float32([22.0, 20.0, 22.0, 20.0, 22.0, 20.0])
+    p = np.zeros((6, 12), np.float32)
+    p[:, 0], p[:, 4], p[:, 8] = 0.4, -0.3, 0.6
+    outs = {}
+    try:
+        meshes = {"cuda": mesh.make_mesh(1, axis="z"),
+                  "cpu": mesh.make_mesh(1, axis="z", device="cpu")}
+        for dev, m in meshes.items():
+            s = halo.ShardedICGN3D1(5, 5, 5, 0.001, 10)
+            s.set_images(ref, tar)
+            t = ot.table_from_numpy_3d(
+                xy, xy, z, p, np.zeros((6, 7), np.float32),
+                np.zeros((6, 6), np.float32), np.zeros((6, 3), np.float32),
+                device=dev)
+            outs[dev] = ot.table_to_numpy(s.compute(t, m))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    zc, zp = outs["cuda"]["r"][:, 3], outs["cpu"]["r"][:, 3]
+    np.testing.assert_array_equal(np.where(zc < 0, zc, 1),
+                                  np.where(zp < 0, zp, 1))
+    assert (zp == -3.0).any() and (zp > 0.9).any()
+    np.testing.assert_allclose(outs["cuda"]["p"][:, [0, 4, 8]],
+                               outs["cpu"]["p"][:, [0, 4, 8]], rtol=0,
+                               atol=1e-4)

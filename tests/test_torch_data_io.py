@@ -163,12 +163,16 @@ def test_import_loads_neither_jax_nor_jax_package():
 
 
 def test_port_sources_name_no_jax():
-    """No module of the port imports jax or the JAX package."""
+    """No module of the port imports jax or the JAX package: every source
+    file, the multi-GPU layer (``parallel/``) and the examples among
+    them."""
     root = os.path.join(REPO, "opencorr_tpu_torch")
+    seen = set()
     for dirpath, _, files in os.walk(root):
         for fn in files:
             if not fn.endswith(".py"):
                 continue
+            seen.add(os.path.relpath(os.path.join(dirpath, fn), root))
             with open(os.path.join(dirpath, fn)) as f:
                 for ln in f:
                     s = ln.strip()
@@ -176,6 +180,20 @@ def test_port_sources_name_no_jax():
                         words = s.replace(",", " ").split()
                         assert "jax" not in words[1].split("."), (fn, s)
                         assert words[1].split(".")[0] != "opencorr_tpu", (fn, s)
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/halo.py",
+            "examples/dvc.py", "examples/reconstruction_epipolar.py",
+            "utils/speckle_quality.py"} <= seen
+
+
+def test_top_level_exports_follow_jax():
+    """The port exports every name the JAX package's ``__init__`` does
+    (but ``ColorfulImage2D``, not ported yet), and, as there, the
+    multi-GPU classes and helpers only from ``parallel``."""
+    missing = set(oc.__all__) - set(ot.__all__)
+    assert missing == {"ColorfulImage2D"}, missing
+    for name in ("ShardedICGN3D1", "make_mesh", "halo_exchange_z",
+                 "partition_pois_z", "assess", "SpeckleQuality"):
+        assert not hasattr(oc, name) and not hasattr(ot, name)
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

@@ -284,9 +284,10 @@ def test_icgn3d1_unported_options_raise():
         torch.zeros((1, 12)), torch.zeros(1), 0.001, 10.0]
     with pytest.raises(NotImplementedError):
         ticgn.icgn3d1(*args, rx=4, ry=4, rz=4, eval_mode="tile")
-    with pytest.raises(NotImplementedError):
-        ticgn.icgn3d1(*args, rx=4, ry=4, rz=4, z_guard_lo=0.0,
-                      z_guard_hi=10.0)
+    # the z guards are ported (tests/test_torch_parallel.py): they run
+    out = ticgn.icgn3d1(*args, rx=4, ry=4, rz=4, z_guard_lo=0.0,
+                        z_guard_hi=10.0)
+    assert out[4].shape == (1,)
     m = ot.ICGN3D1(8, 8, 8, device=CPU)
     with pytest.raises(RuntimeError):
         m.compute(ot.poi_grid_3d((10, 10, 10), 2, 2, 2, 2, device=CPU))
