@@ -66,8 +66,10 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    dimensions, 568x288x940 8-bit, built on the card (synthetic pores over a
    weak speckle, grey levels 18-238; the target is the reference
    translated by u=0.5, v=-0.8, w=1.2 through a Fourier phase shift),
-   through ``examples/dvc.run``'s ``sift_icgn1`` workload: SIFT3D() ->
-   FeatureAffine3D(16, 16, 16) -> ICGN3D1(16, 16, 16, 0.001, 10) ->
+   through ``examples/dvc.run``'s ``sift_icgn1`` workload with SIFT3D's
+   capped device path (``sift_backend="device"``, whose kernel-4 launch
+   shapes phase 2 checks): SIFT3D -> FeatureAffine3D(16, 16, 16) ->
+   ICGN3D1(16, 16, 16, 0.001, 10) ->
    ``save_table_3d``, ``save_matrix_bin_3d`` on
    ``poi_grid_3d((30,30,30),81,21,46,11)`` (78,246 POIs) read from a POI
    CSV.  Counters zeroed after a warm-up on a sub-volume and read just
@@ -77,8 +79,8 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    shift), the converged fraction (>= 0.9), mean |du|, |dv|, |dw| (< 0.01
    voxel), the native writer and that every launch shape of kernels 3 and
    4 is one phase 2 checked.
-8. SIFT3D, FeatureAffine3D and ICGN3D1 on ``cuda`` and on ``cpu`` on a
-   64x64x72 pair: keypoint counts and matched sets equal; FeatureAffine3D
+8. SIFT3D (device path), FeatureAffine3D and ICGN3D1 on ``cuda`` and on
+   ``cpu`` on a 64x64x72 pair: keypoint counts and matched sets equal; FeatureAffine3D
    on the same matches with the same RANSAC draws: codes equal, p within
    1e-4; ICGN3D1 from the same seeds: codes equal, u/v/w within 1e-3 voxel.
 9. The stereo slice's modules on ``cuda`` and on ``cpu`` on a 288x352
@@ -151,13 +153,48 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    matched coordinate by 0.02 px, and that every kernel-1 launch shape is
    one phase 2 checked.  The constant-parallax branch is held against the
    JAX package on the CPU only (tests/test_torch_examples_dvc_recon.py).
-16. JSON lines: per-kernel records, the stage times, and last
-   ``{"ok": true, "device": {...}}``.
+16. (a) SIFT3D's host path (the default of SIFT3D() and of the DVC
+   example, every extremum kept) through ``examples/dvc.run``'s
+   ``sift_icgn1`` on phase 7's pair and grid, after a warm-up on a
+   sub-volume; kernels 3 and 4 counted and timed per launch.  Prints every
+   layer's extrema, oriented and kept counts and its descriptor route
+   (kernel 4, or the einsum path where the crop does not fit or the window
+   clips the sphere), and the host stages' wall ms (blur, DoG, extrema,
+   orientation and descriptors with their window gathers, match).  Every
+   kernel-4 launch's layer is launched again at its own (count, crop),
+   with float32 and bfloat16 operands, each held against its plain
+   version on 256 keypoints spread over the launch within 1e-5 x max|S|
+   and timed.  Gates: every layer with keypoints takes the route the
+   layer plan gives it (``expected_routes``), FeatureAffine3D's -1 share
+   no more than phase 7's plus 0.01, converged >= 0.9, mean |u - u_true|
+   < 0.01 voxel, the median matched displacement within 1 voxel, every
+   kernel-3 launch shape one phase 2 checked.  (b) The host path, and the device path with
+   ``hist_bf16=True``, on ``cuda`` and on ``cpu`` on phase 8's pair:
+   keypoint counts and matched sets equal; the host path's descriptor
+   stage on the same keypoints and rotations within 1e-5 x max|desc|, and
+   on kernel-4 layers the bfloat16 histogram S from the same tables
+   within 1e-5 x max|S|; the two devices' rotations within 1e-4 on four
+   pairs, and three injected orientation faults above it.  (c)
+   FeatureAffine2D with ``neighbor_backend="device"`` against ``"host"``
+   at the stereo path's 10,000 POIs, the rotation's 42,025 and the utn
+   pair's self-adaptive 38,400 (each on its own SIFT2D matches from phases
+   10 and 12), and FeatureAffine3D at 78,246 (on (a)'s matches): both
+   timed, codes, counts and p equal on every POI whose candidate list
+   holds no distance tie; prints the ties.  (d) ICGN3D1 with
+   ``eval_mode="tile"`` on phase 5's queue against ``window_margin=None``
+   (equal wherever the tile path does not fail -3), ShardedICGN3D1 with
+   the tile eval on an NCCL group of one against it (codes equal, u/v/w
+   within 1e-5 voxel), no kernel-3 launch, and 64 POIs at r=16 on ``cuda``
+   and on ``cpu`` (codes equal, u/v/w within 1e-3 voxel).
+17. JSON lines: per-kernel records, the stage times, and last
+   ``{"ok": true, "device": {...}}``.  The script refuses to start when
+   ``OPENCORR_SIFT2D`` is set.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -193,6 +230,12 @@ DVC_CZ = (DVC_SHAPE[0] - 1) / 2.0
 # Torus_POIs.csv's 78,700 points, every POI 24 voxels or more inside.
 TORUS_SHAPE = (568, 288, 940)
 TORUS_R = 16
+# phase 16(b): the host path's rotations on the card against the cpu's on
+# these pairs, and the limit between them, which the faults must pass
+ROT_SEEDS = (5, 6, 7, 8)
+ROT_TOL = 1e-4
+ROT_FAULTS = ("layer rounded to float16", "scale x 1.001",
+              "keypoint x + 1")
 TORUS_UVW = (0.5, -0.8, 1.2)
 TORUS_GRID = ((30, 30, 30), 81, 21, 46, 11)
 # The synthetic pores: clusters of four Gaussian spikes (sigma 2.8 or 3.4
@@ -1080,8 +1123,6 @@ def sift_pair(torch, shape, seed, device, pad=16):
     soft-clipped to 128 +- 110 by a tanh, pointwise, so the target stays the
     exact translation of the clipped continuous field, and no voxel is
     near 0 (IC-GN reads a sample below 0 as out of range, code -3)."""
-    import math
-
     dev = torch.device(device)
     full = [d + 2 * pad for d in shape]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1185,7 +1226,8 @@ def checked_launches(kernel_ms, name, checked, what):
 
 def phase_sift(torch, ot, checked, tmpdir):
     """The feature-seeded DVC path through ``examples/dvc.run``'s
-    ``sift_icgn1`` workload (SIFT3D -> FeatureAffine3D(16) -> ICGN3D1(16) ->
+    ``sift_icgn1`` workload with SIFT3D's capped device path
+    (``sift_backend="device"``: SIFT3D -> FeatureAffine3D(16) -> ICGN3D1(16) ->
     save_table_3d, save_matrix_bin_3d) on the Torus-size pair built on the
     card and a POI CSV, after a warm-up on a sub-volume; kernels 3 and 4
     counted and timed per launch, every launch shape one of ``checked``
@@ -1209,7 +1251,8 @@ def phase_sift(torch, ot, checked, tmpdir):
     write_pois_csv(warm_csv, ot.poi_grid_3d((40, 40, 40), 4, 2, 3, 30,
                                             device="cpu"))
     dvc.run("sift_icgn1", ref[sub].contiguous(), tar[sub].contiguous(),
-            warm_csv, os.path.join(tmpdir, "warm"), "cuda")
+            warm_csv, os.path.join(tmpdir, "warm"), "cuda",
+            sift_backend="device")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = (desc3d.descriptor_hist, lattice3d.lattice_eval_3d)
@@ -1219,7 +1262,7 @@ def phase_sift(torch, ot, checked, tmpdir):
     prefix = os.path.join(tmpdir, "torus")
     info = {}
     out, timer = dvc.run("sift_icgn1", ref, tar, csv_in, prefix, "cuda",
-                         stats=info)
+                         sift_backend="device", stats=info)
     launches = {fn.__name__: fn.launches for fn in wrappers}
     kernel_ms = {fn.__name__: event_ms(fn) for fn in wrappers}
     peak = torch.cuda.max_memory_allocated()
@@ -1296,7 +1339,7 @@ def phase_sift_cpu_agreement(torch, ot, shape=(64, 64, 72), r=TORUS_R):
     res = {}
     sifts = {}
     for dev in devices:
-        s = ot.SIFT3D(device=dev)
+        s = ot.SIFT3D(pyramid_backend="device", device=dev)
         s.set_images(*vols[dev])
         s.compute()
         sifts[dev] = s
@@ -1955,7 +1998,7 @@ def phase_stereo(torch, ot, views, pts, truth, scene, tmpdir):
         check(e < STEREO_TOL_PX, f"stereo {k} mean position error {e}")
     check(res["mean_disp_err_mm"] < bound,
           f"3D displacement error {res['mean_disp_err_mm']} >= {bound}")
-    return res, launches
+    return res, launches, info["sift_matches"]
 
 
 # --- the planar example suite (examples/dic_2d.py) ---------------------------
@@ -2185,6 +2228,7 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
     prefix = os.path.join(tmpdir, "dic2d")
     results = {}
     tables = {}
+    matches = {}
     for wl in dic_2d.WORKLOADS:
         for fn in wrappers:
             fn.events = []
@@ -2204,7 +2248,7 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
                    kernel_event_ms={fn.__name__: event_ms(fn)
                                     for fn in wrappers},
                    **{k: v for k, v in info.items()
-                      if k != "sift2d_octaves"})
+                      if k not in ("sift2d_octaves", "sift_matches")})
         if wl != "strain":
             conv, du, dv = uv_error(t, pairs[DIC2D_PAIR[wl]][2])
             rec.update(converged_frac=conv, mean_abs_du=du, mean_abs_dv=dv,
@@ -2219,6 +2263,8 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
             log(json.dumps({"dic2d_sift2d_octave": dict(workload=wl, **st)}))
         log(json.dumps({"dic2d": {wl: rec}}))
         results[wl] = rec
+        if "sift_matches" in info:
+            matches[wl] = info["sift_matches"]
     launches = {fn.__name__: fn.launches for fn in wrappers}
     log(json.dumps({"dic2d_launches": launches}))
 
@@ -2259,7 +2305,7 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
                for f in ("x", "y", "p", "r", "sr"))
     log(json.dumps({"dic2d_fftcc_icgn1_equals_phase3": same}))
     check(same, "the example's fftcc_icgn1 table differs from phase 3's")
-    return results, launches
+    return results, launches, matches
 
 
 # --- this slice: the DVC example, sharded DVC, the reconstruction example --
@@ -2498,11 +2544,650 @@ def phase_reconstruction(torch, ot, views, pts, truth, scene, checked,
     return res, launches
 
 
+
+# --- phase 16: the host SIFT3D path, FeatureAffine's device search, the
+# tile eval ------------------------------------------------------------------
+
+
+class Kernel4Layers:
+    """While open, records every layer that SIFT3D's host path sends to
+    kernel 4 (the layer volume, its keypoints, rotations, crop, scale and
+    voxel pitch), by wrapping ``SIFT3D._describe``."""
+
+    def __init__(self, sift_cls):
+        self.cls = sift_cls
+        self.orig = sift_cls._describe
+        self.layers = []
+
+    def __enter__(self):
+        orig, layers = self.orig, self.layers
+
+        def describe(sift, vg, g, x, y, z, rot):
+            out = orig(sift, vg, g, x, y, z, rot)
+            if out[2] == "kernel 4":
+                layers.append(dict(vol=vg, x=x, y=y, z=z, rot=rot,
+                                   crop=tuple(out[1]), scale=g.scale,
+                                   units=tuple(g.units)))
+            return out
+
+        self.cls._describe = describe
+        return self.layers
+
+    def __exit__(self, *exc):
+        self.cls._describe = self.orig
+        return False
+
+
+def kernel4_launch_check(torch, lay, keep=256, reps=3, seed=0):
+    """Kernel 4 on one recorded host-path layer at its own (count, crop),
+    float32 and bfloat16 operands, each held against its plain version on
+    ``keep`` keypoints drawn evenly over the launch (a seeded permutation:
+    the keypoints come in z-major scan order, so the first ones all lie at
+    the z=0 face) within 1e-5 x max|S|; CUDA-event ms of both (``reps``
+    launches each), the plain version's ms on the sample, and the
+    operation bound from the sample's voxel counts scaled to the launch's
+    count."""
+    from opencorr_tpu_torch.ops import desc3d
+
+    vol, crop = lay["vol"], lay["crop"]
+    k = int(lay["x"].shape[0])
+    kw = dict(crop=crop, scale=lay["scale"], unit_xyz=lay["units"])
+    starts, tab = desc3d.prepare_tables(vol.shape, lay["x"], lay["y"],
+                                        lay["z"], **kw)
+    rot = lay["rot"].reshape(k, 9).contiguous()
+    gen = torch.Generator().manual_seed(seed)
+    pick = torch.randperm(k, generator=gen)[:keep].sort().values.to(
+        vol.device)
+    zs = lay["z"][pick].float()
+    rec = dict(launch="x".join(map(str, (k, *crop))), keypoints=k,
+               crop=list(crop), scale=lay["scale"], checked=int(pick.numel()),
+               checked_z_range=[float(zs.min()), float(zs.max())],
+               layer_z=int(vol.shape[0]))
+    counts = {}
+    for bf16 in (False, True):
+        tag = "bf16_" if bf16 else ""
+        got = desc3d.descriptor_hist(vol, starts, tab, rot, hist_bf16=bf16,
+                                     **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = desc3d.descriptor_hist_plain(
+            vol, starts[pick], tab[pick], rot[pick], hist_bf16=bf16,
+            counts=None if bf16 else counts, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        err = float((got[pick] - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        check(err <= tol, f"kernel 4 at {rec['launch']} (bf16 {bf16}): "
+              f"max|err| {err} > {tol} on {pick.numel()} spread keypoints")
+        rec[f"{tag}max_abs_err"] = err
+        rec[f"{tag}tolerance"] = tol
+        rec[f"{tag}plain_ms_sample"] = start.elapsed_time(end)
+        rec[f"{tag}ms"] = cuda_ms(torch, lambda: desc3d.descriptor_hist(
+            vol, starts, tab, rot, hist_bf16=bf16, **kw), reps, warm=1)
+        del got, want
+    scale_k = k / pick.numel()
+    flops = scale_k * (counts["sphere_voxels"] * desc3d.FLOPS_SPHERE_VOXEL
+                       + counts["live_voxels"] * desc3d.FLOPS_LIVE_VOXEL)
+    rec.update(bound_ms=flops / F32_FLOP_PER_S * 1e3, bound_by="operations",
+               bound_note=f"voxel counts of {pick.numel()} spread keypoints "
+                          "scaled to the launch's count")
+    return rec
+
+
+def expected_routes(ot, shape):
+    """The descriptor route each (octave, layer) of a ``shape`` volume must
+    take on the host path, from the layer plan alone: the einsum path where
+    the crop box plus its 1-voxel margin does not fit the layer, or where
+    the descriptor sphere's reach on an axis (int(rad / unit) + 1) passes
+    the window radius r_desc; kernel 4 everywhere else."""
+    s = ot.SIFT3D(device="cpu")
+    plan = s._plan_layers(shape)
+    cfg = s.sift_config
+    out = {}
+    for m in range(cfg.n_octave):
+        for n in range(1, cfg.n_octave_layers + 1):
+            g = plan[m * (cfg.n_octave_layers + 3) + n]
+            r_desc = s._radii(g)[1]
+            rad = 2.0 * 5.0 * math.sqrt(2.0) * float(g.scale)
+            reach = [int(rad / u) + 1 for u in (g.units[2], g.units[1],
+                                                 g.units[0])]
+            crop = [min(r_desc, c) for c in reach]
+            if any(2 * (c + 1) + 1 > d for c, d in zip(crop, g.dims)):
+                out[(m, n)] = "plain: crop does not fit"
+            elif any(c > r_desc for c in reach):
+                out[(m, n)] = "plain: window clips the sphere"
+            else:
+                out[(m, n)] = "kernel 4"
+    return out
+
+
+def phase_sift_host(torch, ot, checked, device_fa_codes, tmpdir,
+                    shape=TORUS_SHAPE, grid=TORUS_GRID, dev="cuda"):
+    """SIFT3D's host path (the default) through ``examples/dvc.run``'s
+    ``sift_icgn1`` on phase 7's Torus-size pair and POI grid, after a
+    warm-up on a sub-volume.  Kernels 3 and 4 counted and timed per launch
+    in that run; afterwards every kernel-4 launch's layer is launched again
+    at its own (count, crop), float32 and bfloat16, and held against the
+    plain version on 256 keypoints spread over it.  Prints every layer's
+    extrema, oriented and kept counts (no caps) and descriptor route, and
+    the host path's stage times.  Gates: FeatureAffine3D's -1 share no
+    more than phase 7's (device path) plus 0.01, converged >= 0.9, mean
+    |u - u_true| < 0.01 voxel, the median matched displacement within 1
+    voxel, every kernel-3 launch shape one of ``checked``, every layer
+    with keypoints on the route its plan gives it.  ``shape``,
+    ``grid`` and ``dev`` let a rehearsal run it small on the cpu."""
+    from opencorr_tpu_torch.examples import dvc
+    from opencorr_tpu_torch.models import sift3d as tmodel
+    from opencorr_tpu_torch.ops import desc3d, lattice3d
+
+    t0 = time.perf_counter()
+    ref, tar = sift_pair(torch, shape, seed=3, device=dev)
+    torch.cuda.synchronize()
+    synth_ms = (time.perf_counter() - t0) * 1e3
+    pois = ot.poi_grid_3d(*grid, device="cpu")
+    csv_in = os.path.join(tmpdir, "torus_pois.csv")
+    write_pois_csv(csv_in, pois)
+    sub = (slice(0, 160), slice(0, 128), slice(0, 192))
+    warm_csv = os.path.join(tmpdir, "warm_pois.csv")
+    write_pois_csv(warm_csv, ot.poi_grid_3d((40, 40, 40), 4, 2, 3, 30,
+                                            device="cpu"))
+    dvc.run("sift_icgn1", ref[sub].contiguous(), tar[sub].contiguous(),
+            warm_csv, os.path.join(tmpdir, "warm"), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = (desc3d.descriptor_hist, lattice3d.lattice_eval_3d)
+    for fn in wrappers:
+        fn.launches = 0
+        fn.events = []
+    info = {}
+    with Kernel4Layers(tmodel.SIFT3D) as layers_k4:
+        out, timer = dvc.run("sift_icgn1", ref, tar, csv_in,
+                             os.path.join(tmpdir, "host"), dev, stats=info)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    kernel_ms = {fn.__name__: event_ms(fn) for fn in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    for name, v in launches.items():
+        check(v > 0, f"the host SIFT path launched {name} no time")
+    check(len(layers_k4) == launches["descriptor_hist"],
+          f"{len(layers_k4)} kernel-4 layers recorded, "
+          f"{launches['descriptor_hist']} launches")
+    checked_launches(kernel_ms, "lattice_eval_3d", checked,
+                     "the host SIFT path")
+    stage_ms = {k: v * 1e3 for k, v in zip(timer.names, timer.seconds)}
+    del ref, tar
+    launch_recs = [kernel4_launch_check(torch, lay) for lay in layers_k4]
+    del layers_k4
+    torch.cuda.empty_cache()
+
+    layers = info["sift3d_layers"]
+    mk1, mk2 = info["sift_matches"]
+    med = np.median(mk2 - mk1, axis=0) if len(mk1) else np.full(3, np.nan)
+    codes = info["feature_affine3d_codes"]
+    n = pois.n
+    minus1 = codes["-1.0"] / n
+    minus1_device = device_fa_codes["-1.0"] / n
+    t = ot.table_to_numpy(out)
+    zn = t["r"][:, 3]
+    conv = zn > 0.9
+    u, v, w = TORUS_UVW
+    err = [float(np.abs(t["p"][conv, c] - x).mean())
+           for c, x in ((0, u), (4, v), (8, w))]
+    res = dict(
+        volume=list(shape), pois=n, synth_ms=synth_ms,
+        ref_kp=info["keypoints"][0], tar_kp=info["keypoints"][1],
+        matches=int(len(mk1)), median_match_dxyz=[float(x) for x in med],
+        fa3d_codes=codes, fa3d_minus1_share=minus1,
+        fa3d_minus1_share_device_path=minus1_device,
+        converged_frac=float(conv.mean()), mean_abs_duvw=err,
+        routes={r: sum(1 for st in layers if st.get("route") == r)
+                for r in sorted({st.get("route") for st in layers
+                                 if st.get("route")})},
+        plain_layers=sorted({(st["octave"], st["layer"], st["route"])
+                             for st in layers if st.get("route")
+                             and st["route"] != "kernel 4"}),
+        host_stage_ms=info["sift3d_stage_ms"], stage_ms=stage_ms,
+        icgn_stats=info["icgn_stats"], launches=launches,
+        kernel_event_ms=kernel_ms, peak_mem_mb=peak / 2**20,
+        kernel4_launches=launch_recs)
+    for st in layers:
+        log(json.dumps({"sift_host_layer": st}))
+    log(json.dumps({"sift_host_path": res}))
+    check(all(abs(m - x) <= 1.0 for m, x in zip(med, TORUS_UVW)),
+          f"median matched displacement {med} vs {TORUS_UVW}")
+    check(minus1 <= minus1_device + 0.01,
+          f"FeatureAffine3D -1 share {minus1} (device path {minus1_device})")
+    check(np.isfinite(t["p"][conv]).all(), "non-finite results")
+    check(res["converged_frac"] >= 0.9,
+          f"host SIFT path converged {res['converged_frac']}")
+    check(max(err) < 0.01, f"host SIFT path displacement error {err}")
+    check(all(st["kept"] == st["oriented"] for st in layers),
+          "the host path capped a layer")
+    want = expected_routes(ot, shape)
+    for st in layers:
+        if st["kept"]:
+            check(st.get("route") == want[(st["octave"], st["layer"])],
+                  f"descriptor route {st.get('route')!r} where the layer "
+                  f"plan gives {want[(st['octave'], st['layer'])]!r}: {st}")
+    check(sum(st.get("route") == "kernel 4" for st in layers)
+          == launches["descriptor_hist"],
+          "kernel-4 layers and kernel-4 launches differ")
+    return res, launches, (mk1, mk2)
+
+
+def rotation_gaps(torch, ot, vol, devices=("cuda", "cpu")):
+    """The host path's orientation of ``vol``'s keypoints (extracted on the
+    first device) on both devices from the same pyramid layers: per
+    (octave, layer), the largest |rot_card - rot_cpu| and, for each of
+    ``ROT_FAULTS`` injected on the card's side (the layer rounded to
+    float16, the weighting scale 0.1% off, the keypoint one voxel off in
+    x), the same reading of the faulted rotations."""
+    from opencorr_tpu_torch.ops import sift3d as ops3d
+
+    card, host = devices
+    s = ot.SIFT3D(device=card)
+    plan, vols = s._gaussian_pyramid(vol.to(card))
+    kp = s._extract(vol.to(card), "ref")[0].cpu().numpy()
+    cfg = s.sift_config
+
+    def orient(vg, g, xyz, r, dev, fault=None):
+        vg, scale = vg.to(dev), g.scale
+        x, y, z = (xyz[:, j].to(dev) for j in range(3))
+        if fault == ROT_FAULTS[0]:
+            vg = vg.half().float()
+        elif fault == ROT_FAULTS[1]:
+            scale = scale * 1.001
+        elif fault == ROT_FAULTS[2]:
+            x = x + 1
+        win, x0, y0, z0 = ops3d.gather_windows_3d(vg, x, y, z, r)
+        return ops3d.assign_orientation(
+            win, x0, y0, z0, x, y, z, tuple(vg.shape[::-1]), scale, g.units,
+            cfg.gradient_threshold, cfg.beta, cfg.gamma)[0].cpu()
+
+    out = []
+    for m in range(cfg.n_octave):
+        for n in range(1, cfg.n_octave_layers + 1):
+            sel = (kp[:, 3] == m) & (kp[:, 4] == n)
+            if not sel.any():
+                continue
+            i = m * (cfg.n_octave_layers + 3) + n
+            g, vg = plan[i], vols[i].cpu()
+            xyz = torch.from_numpy((kp[sel, :3] / 2 ** m).astype(np.int64))
+            r = s._radii(g)[0]
+            want = orient(vg, g, xyz, r, host)
+            rec = dict(octave=m, layer=n, keypoints=int(sel.sum()),
+                       max_abs_drot=float(
+                           (orient(vg, g, xyz, r, card) - want).abs().max()))
+            rec["faults"] = {f: float((orient(vg, g, xyz, r, card, f)
+                                       - want).abs().max())
+                             for f in ROT_FAULTS}
+            out.append(rec)
+    return out
+
+
+def phase_sift_host_cpu_agreement(torch, ot, shape=(64, 64, 72),
+                                  devices=("cuda", "cpu")):
+    """SIFT3D on ``cuda`` and on ``cpu`` on phase 8's pair.  The host path
+    (kernel 4 where its route allows on cuda): keypoint counts and matched
+    sets equal.  Its descriptor stage on common inputs, the reference
+    volume's keypoints and the cpu's rotations, layer by layer: within
+    1e-5 x max|desc| on every keypoint; on the kernel-4 layers also the
+    bfloat16 histogram S from the cpu's tables within 1e-5 x max|S|.  The
+    two devices' own rotations within ``ROT_TOL`` on the pairs of
+    ``ROT_SEEDS`` (their structure-tensor sums run in another order, which
+    moves a few descriptors by about 1e-3, as against the JAX package,
+    ROADMAP §3), and each of ``ROT_FAULTS`` above it.  The device path with ``hist_bf16=True``:
+    keypoint counts and matched sets equal, kernel 4 launched on cuda."""
+    from opencorr_tpu_torch.ops import desc3d, sift3d as ops3d
+
+    card, host = devices
+    ref, tar = sift_pair(torch, shape, seed=5, device="cpu")
+    res = {}
+    for backend, bf16 in (("host", False), ("device", True)):
+        got = {}
+        for dev in devices:
+            s = ot.SIFT3D(pyramid_backend=backend, hist_bf16=bf16,
+                          device=dev)
+            s.set_images(ref, tar)
+            before = desc3d.descriptor_hist.launches
+            s.compute()
+            got[dev] = dict(kp=(s.ref_kp_count, s.tar_kp_count),
+                            match=(s.ref_matched_kp, s.tar_matched_kp),
+                            k4=desc3d.descriptor_hist.launches - before)
+        c, p = got[card], got[host]
+        res[backend] = dict(
+            hist_bf16=bf16, keypoints=p["kp"], kp_equal=c["kp"] == p["kp"],
+            matches=len(p["match"][0]),
+            matches_equal=all(np.array_equal(x, y)
+                              for x, y in zip(c["match"], p["match"])),
+            kernel4_launches=c["k4"], kernel4_launches_cpu=p["k4"])
+
+    # the host path's descriptor stage on common keypoints and rotations
+    sh = {dev: ot.SIFT3D(device=dev) for dev in devices}
+    plan, vols = sh[host]._gaussian_pyramid(ref)
+    kp, _ = sh[host]._extract(ref, "ref")
+    kp = kp.numpy()
+    cfg = sh[host].sift_config
+    layers = []
+    for m in range(cfg.n_octave):
+        for n in range(1, cfg.n_octave_layers + 1):
+            sel = (kp[:, 3] == m) & (kp[:, 4] == n)
+            if not sel.any():
+                continue
+            i = m * (cfg.n_octave_layers + 3) + n
+            g = plan[i]
+            xyz = torch.from_numpy((kp[sel, :3] / 2 ** m).astype(np.int64))
+            win, x0, y0, z0 = ops3d.gather_windows_3d(
+                vols[i], *(xyz[:, j] for j in range(3)),
+                sh[host]._radii(g)[0])
+            rots = {host: ops3d.assign_orientation(
+                win, x0, y0, z0, *(xyz[:, j] for j in range(3)),
+                tuple(vols[i].shape[::-1]), g.scale, g.units,
+                cfg.gradient_threshold, cfg.beta, cfg.gamma)[0]}
+            rec = dict(octave=m, layer=n, keypoints=int(sel.sum()))
+            for bf16 in (False, True):
+                if bf16 and rec["route"] != "kernel 4":
+                    continue
+                descs = {}
+                if bf16:  # S from the cpu's tables, whose exp() the
+                    # card would round one ulp apart, which moves a
+                    # bfloat16 operand a whole step now and then
+                    kw = dict(crop=ops3d._sphere_crop(
+                        sh[host]._radii(g)[1], g.scale, g.units),
+                        scale=g.scale, unit_xyz=g.units)
+                    starts, tab = desc3d.prepare_tables(
+                        vols[i].shape, *(xyz[:, j] for j in range(3)), **kw)
+                for dev in devices:
+                    vg = vols[i].to(dev)
+                    x, y, z = (xyz[:, j].to(dev) for j in range(3))
+                    rot = rots[host].to(dev)
+                    if bf16:
+                        descs[dev] = desc3d.descriptor_hist(
+                            vg, starts.to(dev), tab.to(dev),
+                            rot.reshape(-1, 9).contiguous(), hist_bf16=True,
+                            **kw).cpu()
+                    else:
+                        d, _, route = sh[dev]._describe(vg, g, x, y, z, rot)
+                        descs[dev] = d.cpu()
+                        rec["route"] = route
+                tag = "bf16_hist_" if bf16 else ""
+                rec[f"{tag}max_abs_diff"] = float(
+                    (descs[card] - descs[host]).abs().max())
+                rec[f"{tag}tolerance"] = 1e-5 * float(
+                    descs[host].abs().max())
+            layers.append(rec)
+    res["host_descriptor_stage"] = layers
+    res["rotations"] = {}
+    for seed in ROT_SEEDS:
+        pair = ref if seed == 5 else sift_pair(torch, shape, seed=seed,
+                                                device="cpu")[0]
+        res["rotations"][seed] = rotation_gaps(torch, ot, pair, devices)
+    rot_recs = [r for v in res["rotations"].values() for r in v]
+    res["rotation_sound_max"] = max(r["max_abs_drot"] for r in rot_recs)
+    res["rotation_fault_min_of_max"] = {
+        f: min(max(r["faults"][f] for r in v)
+               for v in res["rotations"].values()) for f in ROT_FAULTS}
+    log(json.dumps({"sift_host_cuda_vs_cpu": res}))
+    for backend in ("host", "device"):
+        r = res[backend]
+        check(r["kp_equal"], f"{backend}: keypoint counts differ")
+        check(r["matches_equal"] and r["matches"] > 0,
+              f"{backend}: matched sets differ")
+        check(r["kernel4_launches"] > 0 and r["kernel4_launches_cpu"] == 0
+              or card == "cpu", f"{backend}: kernel 4 launched "
+              f"{r['kernel4_launches']} times on cuda, "
+              f"{r['kernel4_launches_cpu']} on cpu")
+    check(any(r.get("route") == "kernel 4" for r in layers),
+          "no layer of the small pair took kernel 4")
+    # float32 sums in another order, about 1e-6, amplified up to 10x by
+    # eigenvalue ratios below the 0.9 the orientation accepts; each fault
+    # must read above the limit on every pair
+    check(res["rotation_sound_max"] <= ROT_TOL,
+          f"rotations differ by {res['rotation_sound_max']} > {ROT_TOL}")
+    for f, v in res["rotation_fault_min_of_max"].items():
+        check(v > ROT_TOL or card == "cpu",
+              f"rotation fault {f!r} reads {v}, within the limit {ROT_TOL}")
+    for r in layers:
+        for tag in ("", "bf16_hist_"):
+            if f"{tag}max_abs_diff" in r:
+                check(r[f"{tag}max_abs_diff"] <= r[f"{tag}tolerance"],
+                      f"descriptor stage differs: {r}")
+    return res
+
+
+def candidate_ties(torch, fa, table, knn_k=None, r2_rel=2.0 ** -21):
+    """POIs whose candidate list holds a distance tie: two adjacent entries
+    of the list (the in-radius keypoints, the nearest ``neighbor_min``
+    ones, or with ``knn_k`` the nearest ``knn_k``), or its last entry and
+    the next, whose float64 distances lie within ``r2_rel`` of each other
+    (float32 cannot order them), or an entry within it of the search
+    radius (either side of the strict in-radius test).  Such a POI's
+    candidates may be ordered or counted differently by the k-d tree
+    (float64) and the device search (float32, lower index first)."""
+    from opencorr_tpu_torch.ops import feature_affine as fops
+
+    dev = table.x.device
+    ref = torch.from_numpy(fa.ref_kp).to(dev)
+    q = fa._coords(table)
+    kc = min(fa.k_cap, ref.shape[0])
+    r2 = float(fa.neighbor_search_radius) ** 2
+    nmin = fa.neighbor_number_min
+    pos = torch.arange(kc - 1, device=dev)
+    out = []
+    rows = max(1, fops.SEARCH_BUDGET // (fops.SEARCH_ENTRY_BYTES
+                                         * ref.shape[0]))
+    for lo in range(0, q.shape[0], rows):
+        qc = q[lo:lo + rows]
+        d2 = fops.squared_distances(qc, ref)
+        nr = (d2 < fops.f32(r2)).sum(1)
+        _, idx = fops.nearest(d2, kc)
+        del d2
+        if knn_k is not None:
+            n_use = torch.full_like(nr, knn_k)
+        else:
+            n_use = torch.where(nr >= nmin, nr, torch.full_like(nr, nmin))
+        d64 = ((qc.double()[:, None, :] - ref.double()[idx]) ** 2).sum(-1)
+        d64 = torch.sort(d64, 1).values
+        close = ((d64[:, 1:] - d64[:, :-1]) <= r2_rel * d64[:, 1:]) \
+            & (pos[None, :] < n_use[:, None])
+        edge = ((d64 - r2).abs() <= r2_rel * r2) if knn_k is None else \
+            torch.zeros_like(close)
+        out.append(close.any(1) | edge.any(1))
+    return torch.cat(out).cpu().numpy()
+
+
+def fa_backends_case(torch, ot, name, make, kp, table, reps=2,
+                     moved=False):
+    """One queue through ``make(backend)`` (a FeatureAffine module) on the
+    host k-d tree and on the device search, each timed (the second of
+    ``reps`` computes, candidates included, synchronised): codes,
+    iteration and feature counts and p equal on every POI whose candidate
+    list holds no distance tie (``candidate_ties``; with ``moved``, the
+    self-adaptive mode, also at the POIs' moved positions)."""
+    outs, ms = {}, {}
+    for backend in ("host", "device"):
+        for _ in range(reps):
+            fa = make(backend)
+            fa.set_keypoint_pair(*kp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fa.compute(table)
+            torch.cuda.synchronize()
+            ms[backend] = (time.perf_counter() - t0) * 1e3
+        outs[backend] = ot.table_to_numpy(out)
+    h, d = outs["host"], outs["device"]
+    same = (h["r"] == d["r"]).all(1) & (h["p"] == d["p"]).all(1) & \
+        (h["x"] == d["x"]) & (h["y"] == d["y"])
+    probe = make("device")
+    probe.set_keypoint_pair(*kp)
+    if moved:  # the self-adaptive KNN, at the POIs and where they moved
+        k = min(probe.subset_feature_min, len(kp[0]))
+        ties = candidate_ties(torch, probe, table, knn_k=k) | candidate_ties(
+            torch, probe, ot.new_table_2d(d["x"], d["y"],
+                                          device=table.x.device), knn_k=k)
+    else:
+        ties = candidate_ties(torch, probe, table)
+    zc = h["r"][:, 3 if "z" in h else 2]
+    rec = dict(case=name, pois=int(table.n), keypoints=int(len(kp[0])),
+               host_ms=ms["host"], device_ms=ms["device"],
+               tie_pois=int(ties.sum()), differing_pois=int((~same).sum()),
+               differing_without_tie=int((~same & ~ties).sum()),
+               codes={str(c): int((zc == c).sum()) for c in (0.0, -1.0,
+                                                             -2.0)})
+    log(json.dumps({"feature_affine_backends": rec}))
+    check(rec["differing_without_tie"] == 0,
+          f"{name}: the backends differ on {rec['differing_without_tie']} "
+          "POIs without a distance tie")
+    return rec
+
+
+def phase_fa_backends(torch, ot, stereo_kp, dic_kp, torus_kp):
+    """FeatureAffine2D on the device search against the host k-d tree at
+    the stereo path's 10,000 POIs (its SIFT2D matches, r=16), the rotation
+    pair's 42,025 (sift_icgn2's matches, r=12) and the utn pair's
+    self-adaptive 38,400 (r=30, as ``examples/dic_2d.run``), and
+    FeatureAffine3D at the Torus grid's 78,246 (the host SIFT3D path's
+    matches, r=16)."""
+    from opencorr_tpu_torch.examples import dic_2d
+
+    def fa2d(r, adaptive=False):
+        def make(backend):
+            fa = ot.FeatureAffine2D(r, r, neighbor_backend=backend,
+                                    device="cuda")
+            if adaptive:
+                nn = 2 * fa.neighbor_number_min
+                fa.set_search(float(np.sqrt(2.0 * r * r)), nn)
+                fa.set_self_adaptive(True)
+                fa.set_subset_adjustment(nn, 10)
+            return fa
+        return make
+
+    def fa3d(backend):
+        return ot.FeatureAffine3D(TORUS_R, TORUS_R, TORUS_R,
+                                  neighbor_backend=backend, device="cuda")
+
+    sp = stereo_grid_points(STEREO_GRID)
+    cases = (
+        ("stereo", fa2d(16), stereo_kp,
+         ot.new_table_2d(sp[:, 0], sp[:, 1], device="cuda")),
+        ("rotation", fa2d(dic_2d.RADIUS["sift_icgn2"]), dic_kp["sift_icgn2"],
+         ot.poi_grid_2d(*dic_2d.GRIDS["sift_icgn2"], device="cuda")),
+        ("utn_self_adaptive", fa2d(dic_2d.RADIUS["self_adaptive"], True),
+         dic_kp["self_adaptive"],
+         ot.poi_grid_2d(*dic_2d.GRIDS["self_adaptive"], device="cuda")),
+        ("torus", fa3d, torus_kp, ot.poi_grid_3d(*TORUS_GRID,
+                                                 device="cuda")))
+    return [fa_backends_case(torch, ot, *c, moved=c[0].endswith("adaptive"))
+            for c in cases]
+
+
+def phase_tile(torch, ot, vref, vtar, dvc_seeded, r_cmp=16, r=DVC_R,
+               dev="cuda"):
+    """``eval_mode="tile"`` on phase 5's DVC queue (5,733 POIs, r=30):
+    ICGN3D1 with the tile eval against ``window_margin=None`` (the global
+    eval; both timed, beside phase 5's lattice eval), the tile table equal
+    to the global one on every POI it does not fail -3, and those it fails
+    -3 are window exits; no kernel-3 launch.  ShardedICGN3D1(eval_mode=
+    "tile") on an NCCL group of one against ICGN3D1's tile table (codes
+    equal, u/v/w within 1e-5 voxel).  Then 64 POIs at r=16 on cuda and on
+    cpu: codes equal, u/v/w within 1e-3 voxel.  ``r`` and ``dev`` let a
+    rehearsal run it small on the cpu."""
+    from opencorr_tpu_torch.ops import lattice3d
+    from opencorr_tpu_torch.parallel import halo, mesh
+
+    s = dvc_seeded
+    table = ot.table_from_numpy_3d(s["x"], s["y"], s["z"], s["p"], s["r"],
+                                   s["e"], s["sr"], device=dev)
+    outs, ms, stats = {}, {}, {}
+    for mode, margin in (("tile", 8), ("global", None)):
+        m = ot.ICGN3D1(r, r, r, 0.001, 10, window_margin=margin,
+                       eval_mode="tile" if mode == "tile" else "lattice",
+                       device=dev)
+        m.set_images(vref, vtar)
+        m.prepare()
+        before = lattice3d.lattice_eval_3d.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.compute(table)
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) * 1e3
+        stats[mode] = dict(m.stats, kernel3_launches=
+                           lattice3d.lattice_eval_3d.launches - before)
+        outs[mode] = ot.table_to_numpy(out)
+    tile, glob = outs["tile"], outs["global"]
+    zt, zg = tile["r"][:, 3], glob["r"][:, 3]
+    held = zt != -3.0
+    same = bool(np.array_equal(tile["p"][held], glob["p"][held])
+                and np.array_equal(tile["r"][held], glob["r"][held]))
+    exits = int((~held & (zg != -3.0)).sum())
+
+    msh = mesh.make_mesh(1, axis="z", device=dev)
+    sh = halo.ShardedICGN3D1(r, r, r, 0.001, 10, eval_mode="tile")
+    sh.set_images(vref, vtar)
+    before = lattice3d.lattice_eval_3d.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    so = ot.table_to_numpy(sh.compute(table, msh))
+    ms["sharded_tile"] = (time.perf_counter() - t0) * 1e3
+    sh_launches = lattice3d.lattice_eval_3d.launches - before
+    zs = so["r"][:, 3]
+    sh_codes = bool(np.array_equal(np.where(zs < 0, zs, 1),
+                                   np.where(zt < 0, zt, 1)))
+    sh_d = float(np.abs(so["p"][:, [0, 4, 8]] - tile["p"][:, [0, 4, 8]]).max())
+    torch.distributed.destroy_process_group()
+
+    keep = np.linspace(0, len(zt) - 1, 64).astype(np.int64)
+    cmp = {}
+    for side in (dev, "cpu"):
+        m = ot.ICGN3D1(r_cmp, r_cmp, r_cmp, 0.001, 10, eval_mode="tile",
+                       device=side)
+        m.set_images(vref, vtar)
+        m.prepare()
+        cmp[side] = ot.table_to_numpy(m.compute(ot.table_from_numpy_3d(
+            *(s[k][keep] for k in ("x", "y", "z", "p", "r", "e", "sr")),
+            device=side)))
+    zc, zp = cmp[dev]["r"][:, 3], cmp["cpu"]["r"][:, 3]
+    both = (zc > 0) & (zp > 0)
+    res = dict(
+        pois=len(zt), r=r, ms=ms, stats=stats,
+        tile_equals_global_where_held=same, tile_minus3=int((~held).sum()),
+        window_exits=exits, global_minus3=int((zg == -3.0).sum()),
+        converged_tile=float((zt > 0.9).mean()),
+        sharded_tile_codes_equal=sh_codes, sharded_tile_max_abs_duvw=sh_d,
+        sharded_tile_kernel3_launches=sh_launches,
+        sharded_stage_ms={k.replace("_s", "_ms"): v * 1e3
+                          for k, v in sh.times.items()},
+        cmp_pois=64, cmp_r=r_cmp,
+        cmp_codes_equal=bool(np.array_equal(np.where(zc < 0, zc, 1),
+                                            np.where(zp < 0, zp, 1))),
+        cmp_max_abs_duvw=float(np.abs(
+            cmp[dev]["p"][both][:, [0, 4, 8]]
+            - cmp["cpu"]["p"][both][:, [0, 4, 8]]).max())
+        if both.any() else None, cmp_converged=int(both.sum()))
+    log(json.dumps({"tile_eval": res}))
+    check(same, "the tile table differs from the global one on POIs it "
+          "holds")
+    check(stats["tile"]["kernel3_launches"] == 0 and sh_launches == 0,
+          "the tile eval launched kernel 3")
+    check(res["converged_tile"] >= 0.9,
+          f"tile converged {res['converged_tile']}")
+    check(sh_codes and sh_d <= 1e-5,
+          f"sharded tile differs: codes {sh_codes}, u/v/w {sh_d}")
+    check(res["cmp_codes_equal"] and both.any()
+          and res["cmp_max_abs_duvw"] <= 1e-3,
+          f"tile cuda vs cpu: codes {res['cmp_codes_equal']}, "
+          f"{res['cmp_max_abs_duvw']}")
+    return res
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if os.environ.get("OPENCORR_SIFT2D"):
+        print("chip_smoke: OPENCORR_SIFT2D is set; it would change SIFT2D's "
+              "backend on every path checked here", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -2600,8 +3285,8 @@ def main() -> int:
 
     # phase 10: the stereo path at GT4's size
     with tempfile.TemporaryDirectory() as tmpdir:
-        stereo_res, stereo_launches = phase_stereo(torch, ot, views, spts,
-                                                   struth, scene, tmpdir)
+        stereo_res, stereo_launches, stereo_kp = phase_stereo(
+            torch, ot, views, spts, struth, scene, tmpdir)
     by_path["stereo"] = dict(stereo_launches)
     del views, spts, struth, scene
     torch.cuda.empty_cache()
@@ -2614,8 +3299,8 @@ def main() -> int:
 
     # phase 12: the planar example suite at the reference's sizes
     with tempfile.TemporaryDirectory() as tmpdir:
-        dic_res, dic_launches = phase_dic2d(torch, ot, pairs, main_table,
-                                            checked, tmpdir)
+        dic_res, dic_launches, dic_kp = phase_dic2d(
+            torch, ot, pairs, main_table, checked, tmpdir)
     by_path["dic2d"] = dict(dic_launches)
     del pairs
     torch.cuda.empty_cache()
@@ -2633,7 +3318,6 @@ def main() -> int:
         torch, ot, vref8, vtar8, dvc_seeded, dvc_refined,
         checked_3d["lattice_eval_3d"])
     by_path["sharded"] = dict(shard_launches)
-    del vref8, vtar8
     torch.cuda.empty_cache()
 
     # phase 15: the reconstruction example at GT4's size
@@ -2644,10 +3328,35 @@ def main() -> int:
         recon_res, recon_launches = phase_reconstruction(
             torch, ot, rviews, rpts, rtruth, rscene, checked_gathers, tmpdir)
     by_path["reconstruction"] = dict(recon_launches)
+    del rviews, rpts, rtruth, rscene
+    torch.cuda.empty_cache()
 
-    # phase 16: the records
+    # phase 16: (a) SIFT3D's host path (the default) through the DVC
+    # example at the Torus dimensions, every kernel-4 launch held at its
+    # own shape; (b) the host path and the bf16 histograms on cuda against
+    # cpu; (c) FeatureAffine's device neighbour search against the host
+    # k-d tree on four paths' queues; (d) the tile eval on the DVC queue
+    with tempfile.TemporaryDirectory() as tmpdir:
+        host_res, host_launches, torus_kp = phase_sift_host(
+            torch, ot, checked_3d["lattice_eval_3d"], sift_res["fa3d_codes"],
+            tmpdir)
+    by_path["sift_host"] = dict(host_launches)
+    torch.cuda.empty_cache()
+    host_cmp = phase_sift_host_cpu_agreement(torch, ot)
+    fa_res = phase_fa_backends(torch, ot, stereo_kp, dic_kp, torus_kp)
+    tile_res = phase_tile(torch, ot, ot.Image3D.from_array(vref8),
+                          ot.Image3D.from_array(vtar8), dvc_seeded)
+    del vref8, vtar8
+    log(json.dumps({"phase16": dict(
+        sift_host_kernel4=host_res["kernel4_launches"],
+        sift_host_cuda_vs_cpu=host_cmp, feature_affine_backends=fa_res,
+        tile_ms=tile_res["ms"], lattice_icgn_ms_phase5=dvc_res[
+            "stage_ms"]["icgn3d1"])}))
+
+    # phase 17: the records
     path_ms = {"dvc": dvc_res["kernel_event_ms"],
                "sift": sift_res["kernel_event_ms"],
+               "sift_host": host_res["kernel_event_ms"],
                "stereo": stereo_res["kernel_event_ms"],
                "dic2d": merge_event_ms([r["kernel_event_ms"]
                                         for r in dic_res.values()]),
@@ -2691,6 +3400,8 @@ def main() -> int:
     log(json.dumps({"stage_ms": main_res["stage_ms"],
                     "dvc_stage_ms": dvc_res["stage_ms"],
                     "sift_stage_ms": sift_res["stage_ms"],
+                    "sift_host_stage_ms": host_res["stage_ms"],
+                    "sift_host_stages_ms": host_res["host_stage_ms"],
                     "stereo_stage_ms": stereo_res["stage_ms"],
                     "dic2d_stage_s": {wl: r["stage_s"]
                                       for wl, r in dic_res.items()},

@@ -6,24 +6,23 @@ tensors, with hand-written CUDA kernels (``csrc/``) where the JAX package
 had Pallas kernels.  Modules and top-level functions run on ``cuda`` unless
 the caller passes ``device="cpu"``; without a CUDA device they raise.
 
-Ported so far: the flagship 2D path FFTCC2D -> ICGN2D1 -> Strain, the
-DVC path FFTCC3D -> ICGN3D1 -> Strain, the feature-seeded DVC path
-SIFT3D -> FeatureAffine3D -> ICGN3D1, stereo 3D-DIC (EpipolarSearch ->
-ICGN2D2, SIFT2D -> FeatureAffine2D -> ICGN2D1, triangulation, stereo
-strain; ``examples/stereo_3d_dic_epipolar_sift.py``), and the planar
-example suite (``examples/dic_2d.py``): the refiners ICGN2D1/2, ICLM2D1/2
-and NR2D1, self-adaptive subsets (FeatureAffine2D, ICGN2D1/2, ICLM2D1/2),
-``utils/timing.StageTimer`` and the native table codec; the DVC and
-surface-reconstruction examples (``examples/dvc.py``,
-``examples/reconstruction_epipolar.py``), ``utils/speckle_quality`` and
-multi-GPU execution on ``torch.distributed`` (``parallel.mesh``: POI
-batches over a mesh; ``parallel.halo.ShardedICGN3D1``: z-sharded DVC).
-As in the JAX package, the multi-GPU layer and the examples are imported
-from their modules, not from here.
+Every module and option of the JAX package is ported but the ``parts``
+benchmark knob of the SIFT3D descriptor, the XLA compile cache and
+``hosthints``, which exist for the TPU: the 2D paths (FFTCC2D, ICGN2D1/2,
+ICLM2D1/2, NR2D1, self-adaptive subsets, Strain, SIFT2D with its device and
+OpenCV backends, FeatureAffine2D with the host or device neighbour search),
+DVC (FFTCC3D, ICGN3D1 with the lattice, tile or global eval, Strain 3D),
+SIFT3D (the host path by default, or the capped device path) ->
+FeatureAffine3D -> ICGN3D1, stereo 3D-DIC and surface reconstruction, the
+examples (``examples/``), ``utils/timing.StageTimer``, the native table
+codec and multi-GPU execution on ``torch.distributed``
+(``parallel.mesh``: POI batches over a mesh; ``parallel.halo.
+ShardedICGN3D1``: z-sharded DVC).  As in the JAX package, the multi-GPU
+layer and the examples are imported from their modules, not from here.
 """
 
 from .utils import precision as _precision  # noqa: F401  (pins full f32)
-from .data.image import Image2D, Image3D
+from .data.image import ColorfulImage2D, Image2D, Image3D
 from .data.poi import (
     POITable2D,
     POITable2DS,
@@ -72,6 +71,7 @@ from .utils.precision import resolve_device
 from .utils.timing import StageTimer
 
 __all__ = [
+    "ColorfulImage2D",
     "Image2D",
     "Image3D",
     "POITable2D",

@@ -18,7 +18,12 @@
 // quirk, oc_sift.cpp:1184-1199).  Each product is rounded separately in the
 // order of the plain PyTorch version (ops/desc3d.py::hist_from_tables), so
 // the two make the same decisions (sphere, cube, face, bins) and differ
-// only in the order of the sums.
+// only in the order of the sums.  With the bf16 flag (the JAX package's
+// hist_bf16 option: bfloat16 operands of the histogram product, float32
+// sums) the two factors alpha * gg_a and the corner weight are each
+// rounded to bfloat16, nearest even, before their product, which is then
+// exact; a separate instance of the kernel, so the float32 one is
+// unchanged.
 //
 // Bound on the H100: operations.  A keypoint reads only the in-sphere
 // voxels of its box and their one-voxel shell and writes 15 KB, but every
@@ -64,6 +69,7 @@
 // The block adds its S to the output once (a store when there is one
 // band).  Float atomics make the summation order vary from run to run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -99,6 +105,14 @@ __device__ __forceinline__ float sub_cube(float r, float cr, float inv_cr) {
                    0.5f);
 }
 
+// x itself, or x rounded to bfloat16 (nearest even) when kBf16
+template <bool kBf16>
+__device__ __forceinline__ float operand(float x) {
+  if (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 desc3d_kernel(const float* __restrict__ vol,
               const int32_t* __restrict__ starts,
@@ -275,8 +289,9 @@ desc3d_kernel(const float* __restrict__ vol,
       bin[a][1] = i + 1;
       wt[a][1] = f;
     }
-    const float ag[3] = {__fmul_rn(alpha, gg[0]), __fmul_rn(alpha, gg[1]),
-                         __fmul_rn(alpha, gg[2])};
+    const float ag[3] = {operand<kBf16>(__fmul_rn(alpha, gg[0])),
+                         operand<kBf16>(__fmul_rn(alpha, gg[1])),
+                         operand<kBf16>(__fmul_rn(alpha, gg[2]))};
 #pragma unroll
     for (int bz = 0; bz < 2; ++bz) {
       if (bin[0][bz] > 3) continue;
@@ -286,8 +301,8 @@ desc3d_kernel(const float* __restrict__ vol,
 #pragma unroll
         for (int bx = 0; bx < 2; ++bx) {
           if (bin[2][bx] > 3) continue;
-          const float cw =
-              __fmul_rn(wt[0][bz], __fmul_rn(wt[1][by], wt[2][bx]));
+          const float cw = operand<kBf16>(
+              __fmul_rn(wt[0][bz], __fmul_rn(wt[1][by], wt[2][bx])));
           const int col = (bin[0][bz] * 4 + bin[1][by]) * 4 + bin[2][bx];
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
@@ -311,15 +326,12 @@ desc3d_kernel(const float* __restrict__ vol,
   }
 }
 
-}  // namespace
-
-// out must hold K*60*64 zeros.  Returns a cudaError_t code (0 on success).
-extern "C" int oc_desc3d_hist(const float* vol, const int32_t* starts,
-                              const float* tab, const float* rot, float* out,
-                              int k, int cz, int cy, int cx, int dz, int dy,
-                              int dx, float r2, float cr, float inv_cr,
-                              float hx, float hy, float hz, float dhat,
-                              const float* normals, void* stream) {
+template <bool kBf16>
+int launch(const float* vol, const int32_t* starts, const float* tab,
+           const float* rot, float* out, int k, int cz, int cy, int cx,
+           int dz, int dy, int dx, float r2, float cr, float inv_cr, float hx,
+           float hy, float hz, float dhat, const float* normals,
+           void* stream) {
   // a row's first x and length fit 8 bits each
   if (k < 0 || cz < 1 || cy < 1 || cx < 1 || cx > 255 || cy > kMaxRows ||
       dz < cz + 2 || dy < cy + 2 || dx < cx + 2) {
@@ -354,13 +366,38 @@ extern "C" int oc_desc3d_hist(const float* vol, const int32_t* starts,
   const size_t smem =
       (size_t)(kRows * kPitch + 3 * (cz + cy + cx) + 9) * sizeof(float) +
       2 * sizeof(int) + (size_t)(p.band * cy + 1) * sizeof(uint16_t);
+  auto kernel = desc3d_kernel<kBf16>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        desc3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  desc3d_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       vol, starts, tab, rot, out, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out must hold K*60*64 zeros.  Returns a cudaError_t code (0 on success).
+extern "C" int oc_desc3d_hist(const float* vol, const int32_t* starts,
+                              const float* tab, const float* rot, float* out,
+                              int k, int cz, int cy, int cx, int dz, int dy,
+                              int dx, float r2, float cr, float inv_cr,
+                              float hx, float hy, float hz, float dhat,
+                              const float* normals, void* stream) {
+  return launch<false>(vol, starts, tab, rot, out, k, cz, cy, cx, dz, dy, dx,
+                       r2, cr, inv_cr, hx, hy, hz, dhat, normals, stream);
+}
+
+// The same with both factors of every product rounded to bfloat16.
+extern "C" int oc_desc3d_hist_bf16(const float* vol, const int32_t* starts,
+                                   const float* tab, const float* rot,
+                                   float* out, int k, int cz, int cy, int cx,
+                                   int dz, int dy, int dx, float r2, float cr,
+                                   float inv_cr, float hx, float hy,
+                                   float hz, float dhat,
+                                   const float* normals, void* stream) {
+  return launch<true>(vol, starts, tab, rot, out, k, cz, cy, cx, dz, dy, dx,
+                      r2, cr, inv_cr, hx, hy, hz, dhat, normals, stream);
 }

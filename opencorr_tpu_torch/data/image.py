@@ -1,5 +1,5 @@
-"""Image and volume ingestion (mirrors ``Image2D`` and ``Image3D``,
-oc_image.h:28-46).
+"""Image and volume ingestion (mirrors ``Image2D``, ``Image3D`` and
+``ColorfulImage2D``, oc_image.h:28-68).
 
 The voxels stay a host float32 array; modules upload them to their device
 in ``set_images``.
@@ -103,3 +103,35 @@ class Image3D:
     @classmethod
     def from_array(cls, arr) -> "Image3D":
         return cls(mat=np.asarray(arr, np.float32))
+
+
+@dataclasses.dataclass
+class ColorfulImage2D:
+    """A colour image as float32 [H, W] planes b, g and r (mirrors
+    ``ColorfulImage2D``, oc_image.h:68 / oc_image.cpp:177-223)."""
+
+    b: np.ndarray
+    g: np.ndarray
+    r: np.ndarray
+    file_path: str = ""
+
+    @property
+    def height(self) -> int:
+        return self.b.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.b.shape[1]
+
+    @classmethod
+    def load(cls, file_path: str) -> "ColorfulImage2D":
+        """Any format OpenCV reads, as ``cv::imread(path, IMREAD_COLOR)``
+        split into its blue, green and red planes."""
+        import cv2
+
+        m = cv2.imread(file_path, cv2.IMREAD_COLOR)
+        if m is None:
+            raise IOError(f"Fail to load file: {file_path}")
+        b, g, r = cv2.split(m)
+        return cls(b=b.astype(np.float32), g=g.astype(np.float32),
+                   r=r.astype(np.float32), file_path=file_path)

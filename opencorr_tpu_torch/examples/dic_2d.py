@@ -110,8 +110,8 @@ def run(workload: str, ref=None, tar=None, out_prefix: Optional[str] = None,
     ``sift_matches``: (ref_kp, tar_kp) host arrays that replace the SIFT
     stage; ``ransac_draws`` [3, N, 20]: FeatureAffine2D's trial draws
     (default: its seeded generator's).  ``stats``, a dict, receives the
-    modules' branch counts, the SIFT2D octave counts, FeatureAffine2D's
-    codes, the self-adaptive r_max, which table writer ran and the table
+    modules' branch counts, the SIFT2D octave counts and matched
+    keypoints, FeatureAffine2D's codes, the self-adaptive r_max, which table writer ran and the table
     writes' seconds.  A profiler sees each stage as the range
     ``stage:<name>`` (:class:`StageTimer`).  Returns (the result table, the
     StageTimer)."""
@@ -168,6 +168,7 @@ def run(workload: str, ref=None, tar=None, out_prefix: Optional[str] = None,
             sift.compute()
             sync()
             info["sift2d_octaves"] = list(sift.octave_stats)
+            info["sift_matches"] = (sift.ref_matched_kp, sift.tar_matched_kp)
             return sift.ref_matched_kp, sift.tar_matched_kp
 
     def refine(module, stage, table):

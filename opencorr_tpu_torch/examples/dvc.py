@@ -75,6 +75,7 @@ def _dims_xyz(vol):
 
 def run(workload: str = "fftcc_icgn1", ref=None, tar=None, poi_csv=None,
         out_prefix: Optional[str] = None, device: DeviceLike = None, *,
+        sift_backend: Optional[str] = None,
         ransac_draws: Optional[torch.Tensor] = None,
         stats: Optional[dict] = None):
     """Run one workload with the reference program's parameters: r=30 for
@@ -84,8 +85,10 @@ def run(workload: str = "fftcc_icgn1", ref=None, tar=None, poi_csv=None,
     ``ref``/``tar``: the volumes; for ``strain``, ``ref`` is the result
     table to resume from.  ``poi_csv``: the POIs (x, y, z columns under a
     header); by default a grid at step 20 from 40 voxels inside.
-    ``ransac_draws`` [4, N, 32]: FeatureAffine3D's trial draws (default: its
-    seeded generator's).  ``stats``, a dict, receives the modules' counts,
+    ``sift_backend``: SIFT3D's ``pyramid_backend`` (default: the class
+    default, ``"host"``, as the reference program's SIFT3D(); ``"device"``
+    takes the capped device path).  ``ransac_draws`` [4, N, 32]:
+    FeatureAffine3D's trial draws (default: its seeded generator's).  ``stats``, a dict, receives the modules' counts,
     SIFT3D's layer and keypoint counts and matched keypoints,
     FeatureAffine3D's codes, the seeded table IC-GN starts from
     (``seeded``), which table writer ran and the table writes' seconds.
@@ -147,13 +150,15 @@ def run(workload: str = "fftcc_icgn1", ref=None, tar=None, poi_csv=None,
             sync()
         info["fftcc_stats"] = dict(fftcc.stats)
     else:  # sift_icgn1
-        sift = SIFT3D(device=dev)
+        sift = (SIFT3D(device=dev) if sift_backend is None else
+                SIFT3D(pyramid_backend=sift_backend, device=dev))
         sift.set_images(ref, tar)
         with timer.stage("SIFT"):
             sift.prepare()
             sift.compute()
             sync()
         info["sift3d_layers"] = [dict(st) for st in sift.layer_stats]
+        info["sift3d_stage_ms"] = dict(sift.stage_ms)
         info["keypoints"] = [sift.ref_kp_count, sift.tar_kp_count]
         info["sift_matches"] = (sift.ref_matched_kp, sift.tar_matched_kp)
         fa = FeatureAffine3D(r, r, r, device=dev)

@@ -81,8 +81,8 @@ def run(ref_view1, ref_view2, tar_view1, tar_view2, pts, cam1: Calibration,
     ``sift_matches``: (ref_kp, tar_kp) host arrays that replace the SIFT
     stage; ``ransac_draws`` [3, N, 20]: FeatureAffine2D's trial draws
     (default: its seeded generator's).  ``stats``, a dict, receives the
-    SIFT2D octave counts, the match count, FeatureAffine2D's codes and the
-    IC-GN branch counts.  ``out_path`` None skips
+    SIFT2D octave counts, the match count and the matched keypoints,
+    FeatureAffine2D's codes and the IC-GN branch counts.  ``out_path`` None skips
     ``save_table_2ds``.  Returns (POITable2DS, timings in seconds of the
     phases r1_to_r2 (epipolar_r2, icgn2d2_r2), r1_to_t1 (sift2d,
     feature_affine2d, icgn2d1), r1_to_t2 (epipolar_t2, icgn2d2_t2),
@@ -191,7 +191,7 @@ def run(ref_view1, ref_view2, tar_view1, tar_view2, pts, cam1: Calibration,
     if stats is not None:
         codes = fa_codes.cpu().numpy()
         stats.update(sift2d_octaves=list(sift.octave_stats),
-                     matches=len(ref_mk),
+                     matches=len(ref_mk), sift_matches=(ref_mk, tar_mk),
                      feature_affine2d_codes={
                          str(c): int((codes == c).sum())
                          for c in (0.0, -1.0, -2.0)},

@@ -63,6 +63,14 @@ def budget_chunk(chunk_size: Optional[int], rx: int, ry: int,
     return min(chunk_size, max(1024, budget // s))
 
 
+def sort_by_zncc(table):
+    """Descending ZNCC order, stable (``sortByZNCC``, oc_dic.cpp:57): (the
+    reordered table, the permutation as a numpy int64 array)."""
+    order = np.argsort(-table.zncc.cpu().numpy(), kind="stable")
+    idx = torch.from_numpy(order).to(table.device)
+    return table.map(lambda a: a[idx]), order
+
+
 def _as_mat(img):
     """Accept Image2D wrappers, numpy arrays or tensors."""
     return getattr(img, "mat", img)

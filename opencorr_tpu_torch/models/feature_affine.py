@@ -65,6 +65,17 @@ class _CandidateCache:
         self._entries = []
 
 
+def _trim(idx, cand, samples: int):
+    """(idx, cand) [N, kc] (numpy arrays or tensors) without the columns
+    past every row's last candidate (a row's candidates are a prefix of
+    it), keeping a multiple of 16 and at least ``samples``: the draws are
+    taken modulo each row's candidate count, so no result changes."""
+    kc = idx.shape[1]
+    keep = int(cand.sum(1).max()) if cand.shape[0] else 0
+    kc_eff = min(kc, max(16, -(-max(keep, samples) // 16) * 16))
+    return idx[:, :kc_eff], cand[:, :kc_eff]
+
+
 def _host_candidates(tree, q, kc, radius, neighbor_min, samples):
     """The k-d tree candidate stage (the reference's nanoflann radius search
     with KNN fallback, oc_feature_affine.cpp:182-222): per query point the
@@ -75,8 +86,7 @@ def _host_candidates(tree, q, kc, radius, neighbor_min, samples):
 
     The query starts at k0 = max(16, neighbor_min, samples) neighbours and
     doubles k only for rows whose k-th neighbour is still in radius, up to
-    ``kc``; the kept set is a prefix of each row, so columns past the
-    longest prefix (rounded up to 16) are dropped."""
+    ``kc``; the kept set is a prefix of each row (:func:`_trim`)."""
     k = min(kc, max(16, int(neighbor_min), int(samples)))
     d, idx = tree.query(q, k=k, workers=-1)
     if k == 1:
@@ -96,10 +106,8 @@ def _host_candidates(tree, q, kc, radius, neighbor_min, samples):
     pos = np.arange(k)[None, :]
     cand_mask = np.where((nr >= neighbor_min)[:, None], in_r,
                          pos < neighbor_min)
-    enough = nr >= samples
-    keep = int(cand_mask.sum(1).max(initial=0))
-    kc_eff = min(k, max(16, -(-max(keep, samples) // 16) * 16))
-    return (idx[:, :kc_eff].astype(np.int32), cand_mask[:, :kc_eff], enough)
+    return _trim(idx.astype(np.int32), cand_mask, samples) + (
+        nr >= samples,)
 
 
 @dataclasses.dataclass
@@ -113,14 +121,20 @@ class RansacConfig:
 
 class _FeatureAffine:
     """What FeatureAffine2D and FeatureAffine3D share: the keypoint pair,
-    the host k-d tree candidates and the chunked RANSAC.
+    the candidate keypoints of every POI and the chunked RANSAC.
 
-    The neighbour search is the host k-d tree (``neighbor_backend="host"``,
-    scipy's cKDTree, as the reference's nanoflann); the JAX package's
-    all-pairs ``"device"`` search is not ported.  The RANSAC draws come
-    from a ``torch.Generator`` seeded with ``seed`` on the CPU, so a queue
-    gets the same draws on every device.  ``chunk_size`` POIs run at
-    once."""
+    ``neighbor_backend``: ``"host"`` (the default, as in the JAX package)
+    searches with a host k-d tree (scipy's cKDTree, as the reference's
+    nanoflann); ``"device"`` with the all-pairs search on the module's
+    device (``ops.feature_affine.device_candidates``).  Both give the same
+    candidates but where two keypoints lie at one distance from a POI (the
+    k-d tree may order them either way; the device search takes the lower
+    index first, as the JAX package's ``top_k``) or a distance rounds
+    across the radius in float32.  The candidate columns past every POI's
+    last candidate are dropped before the RANSAC, which changes no result.
+    The RANSAC draws come from a ``torch.Generator`` seeded with ``seed``
+    on the CPU, so a queue gets the same draws on every device.
+    ``chunk_size`` POIs run at once."""
 
     dim = 0
     table_type = None
@@ -128,11 +142,9 @@ class _FeatureAffine:
     def __init__(self, radii, neighbor_min: int, ransac: "RansacConfig",
                  k_cap: int, seed: int, chunk_size: Optional[int],
                  neighbor_backend: str, device: DeviceLike):
-        if neighbor_backend != "host":
-            raise NotImplementedError(
-                f"{type(self).__name__}: neighbor_backend="
-                f"{neighbor_backend!r} is not ported; the port searches with "
-                "a host k-d tree ('host')")
+        if neighbor_backend not in ("host", "device"):
+            raise ValueError(f"{type(self).__name__}: neighbor_backend "
+                             f"{neighbor_backend!r}; 'host' or 'device'")
         self.device = resolve_device(device)
         self.neighbor_search_radius = float(
             np.sqrt(sum(r ** 2 for r in radii)))
@@ -162,23 +174,30 @@ class _FeatureAffine:
 
     def prepare(self, table=None, points=None):
         """Build the keypoint k-d tree (the reference's prepare() builds its
-        nanoflann index, oc_feature_affine.cpp:112-116); with ``table``,
-        also its candidate tables (``points`` [N, D] spares reading the
-        coordinates back)."""
+        nanoflann index, oc_feature_affine.cpp:112-116; the device search
+        needs none); with ``table``, also its candidate tables (``points``
+        [N, D] spares the host search reading the coordinates back)."""
         if self.ref_kp is not None:
-            from scipy.spatial import cKDTree
+            if self.neighbor_backend == "host":
+                from scipy.spatial import cKDTree
 
-            self._tree = cKDTree(self.ref_kp)
+                self._tree = cKDTree(self.ref_kp)
             if table is not None:
                 self._candidates(table, points)
 
     def _candidates(self, table, points=None):
         kc = min(self.k_cap, len(self.ref_kp))
         sm = self.ransac.sample_number
-        params = (kc, self.neighbor_search_radius, self.neighbor_number_min,
-                  sm)
+        params = (self.neighbor_backend, kc, self.neighbor_search_radius,
+                  self.neighbor_number_min, sm)
 
         def build():
+            if self.neighbor_backend == "device":
+                idx, cand, enough = fa_ops.device_candidates(
+                    self._keypoints()[0], self._coords(table),
+                    self.neighbor_search_radius, self.neighbor_number_min,
+                    sm, kc)
+                return _trim(idx, cand, sm) + (enough,)
             if points is not None:
                 q = np.asarray(points, np.float64).reshape(-1, self.dim)
             else:
@@ -190,6 +209,16 @@ class _FeatureAffine:
                          for a in (idx, cand, enough))
 
         return self._cand.get(table.x, params, build)
+
+    def _keypoints(self):
+        """(ref_kp, tar_kp) as float32 tensors on the module's device."""
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in (self.ref_kp, self.tar_kp))
+
+    def _coords(self, table) -> torch.Tensor:
+        """[N, D] POI coordinates (x, y[, z]) of ``table``, on its device."""
+        axes = ("x", "y", "z")[:self.dim]
+        return torch.stack([getattr(table, a) for a in axes], -1)
 
     def _ransac(self, ref_kp, tar_kp, t, idx, cand, enough, draws, trials,
                 samples):  # pragma: no cover - overridden
@@ -212,7 +241,7 @@ class _FeatureAffine:
         if table.device != self.device:
             raise ValueError(f"POI table on {table.device}, module on "
                              f"{self.device}")
-        if self._tree is None:
+        if self._tree is None and self.neighbor_backend == "host":
             self.prepare()
 
     def _run(self, table, idx, cand, enough, draws):
@@ -225,8 +254,7 @@ class _FeatureAffine:
         if tuple(draws.shape) != shape:
             raise ValueError(f"draws {tuple(draws.shape)}, expected {shape}")
         draws = draws.to(device=self.device, dtype=torch.int64)
-        ref_kp = torch.from_numpy(self.ref_kp).to(self.device)
-        tar_kp = torch.from_numpy(self.tar_kp).to(self.device)
+        ref_kp, tar_kp = self._keypoints()
 
         def run(t, idx_c, cand_c, en_c, draws_c):
             return self._ransac(ref_kp, tar_kp, t, idx_c, cand_c, en_c,
@@ -272,23 +300,38 @@ class FeatureAffine2D(_FeatureAffine):
         self._ready(table)
         t, knn = self._adapt_subsets(table)
         n, k = knn.shape
+        sm = self.ransac.sample_number
+        if self.neighbor_backend == "device":
+            # the k nearest keypoints of the moved POIs (the JAX package's
+            # knn_only search)
+            idx, cand, enough = fa_ops.device_candidates(
+                self._keypoints()[0], self._coords(t), 0.0,
+                self.neighbor_number_min, sm, self.k_cap, knn_k=k)
+            return self._run(t, *_trim(idx, cand, sm), enough, draws)
         to = lambda a: torch.from_numpy(a).to(self.device)
         return self._run(t, to(knn.astype(np.int32)),
-                         to(np.ones((n, k), bool)),
-                         to(np.full(n, k >= self.ransac.sample_number)),
+                         to(np.ones((n, k), bool)), to(np.full(n, k >= sm)),
                          draws)
 
     def _adapt_subsets(self, table: poi_mod.POITable2D):
-        """The self-adaptive subsets (oc_feature_affine.cpp:128-179), on
-        the host: each POI's ``subset_feature_min`` nearest keypoints; a
-        POI outside their bounding box moves to its centre; the radii
-        cover the box from the POI, truncated to int as the reference
-        does, and at least ``subset_radius_min``.  Returns (the table with
-        the moved x, y and the radii in ``sr``, the KNN indices [N, k])."""
+        """The self-adaptive subsets (oc_feature_affine.cpp:128-179): each
+        POI's ``subset_feature_min`` nearest keypoints (by the k-d tree, or
+        by the device search on float32 distances); a POI outside their
+        bounding box moves to its centre; the radii cover the box from the
+        POI, truncated to int as the reference does, and at least
+        ``subset_radius_min``.  Returns (the table with the moved x, y and
+        the radii in ``sr``, the KNN indices [N, k])."""
         xs, ys = (a.copy() for a in table.xy_numpy())
         n = table.n
         k = min(self.subset_feature_min, len(self.ref_kp))
-        _, knn = self._tree.query(np.stack([xs, ys], -1), k=k, workers=-1)
+        if self.neighbor_backend == "device":
+            q = torch.from_numpy(np.stack([xs, ys], -1)).to(self.device)
+            knn = fa_ops.device_candidates(
+                self._keypoints()[0], q, 0.0, 0, 0, k, knn_k=k,
+                fused=False)[0].cpu().numpy().astype(np.int64)
+        else:
+            _, knn = self._tree.query(np.stack([xs, ys], -1), k=k,
+                                      workers=-1)
         knn = knn.reshape(n, k)
         kx = self.ref_kp[knn, 0]
         ky = self.ref_kp[knn, 1]

@@ -48,9 +48,10 @@ class Refiner2D(base.Module2D):
     """What the 2D iterative refiners share: the iteration limits, the
     reference gradients and the target LUT, POI chunks of at most
     ``chunk_size`` within ``base.budget_chunk``'s working set, and the
-    windowed eval's margin (``window_margin``, default 8; ``None`` or an
-    image smaller than the window takes the global LUT).  ``stats`` counts
-    the eval branches and iterations of every compute."""
+    windowed eval's margin (``window_margin``, default 8; ``None``, an
+    ``eval_mode`` other than "lattice" or an image smaller than the window
+    takes the global LUT, as in the JAX package).  ``stats`` counts the
+    eval branches and iterations of every compute."""
 
     order = 1
 
@@ -58,12 +59,13 @@ class Refiner2D(base.Module2D):
                  conv_criterion: float = 0.001, stop_condition: float = 10,
                  chunk_size: Optional[int] = 65536,
                  window_margin: Optional[int] = 8,
-                 device: DeviceLike = None):
+                 eval_mode: str = "lattice", device: DeviceLike = None):
         super().__init__(subset_radius_x, subset_radius_y, device)
         self.conv_criterion = float(conv_criterion)
         self.stop_condition = float(stop_condition)
         self.chunk_size = chunk_size
         self.window_margin = window_margin
+        self.eval_mode = eval_mode
         self.stats = collections.Counter()
         self._gx = None
         self._gy = None
@@ -92,9 +94,10 @@ class Refiner2D(base.Module2D):
         self._check_table(table)
 
     def _margin(self) -> Optional[int]:
-        """The windowed eval's margin, or None where the image is smaller
-        than the window (the global path)."""
-        margin = self.window_margin
+        """The windowed eval's margin, or None (the global path) for an
+        ``eval_mode`` other than "lattice" or an image smaller than the
+        window."""
+        margin = self.window_margin if self.eval_mode == "lattice" else None
         if margin is not None:
             h, w = self.ref_img.shape
             if min(w - 2 * self.subset_radius_x,
@@ -169,12 +172,14 @@ class ICGN3D1(base.Module3D):
     """3D first-order IC-GN for DVC (oc_icgn.cpp:1270-1501).
 
     ``window_margin`` (default 8) evaluates the target through per-POI
-    coefficient windows of half-extent r+margin and the lattice kernel
-    (``eval_mode="lattice"``, the only mode ported); a chunk in which any
-    active sample wobbles past the lattice's D=1 falls back to the exact
-    global eval for that iteration.  ``None`` evaluates every sample
-    through the global coefficient volume.  Volumes too small for the
-    window take the global path.
+    coefficient windows of half-extent r+margin, where a sample leaving
+    its window fails its POI with -3: with ``eval_mode="lattice"`` (the
+    default) through the lattice kernel, a chunk in which any active
+    sample wobbles past the lattice's D=1 falling back to the exact global
+    eval for that iteration; with ``"tile"`` at the global eval's values
+    (the JAX package's tile-LUT path, without its TPU layout).  ``None``
+    evaluates every sample through the global coefficient volume.  Volumes
+    too small for the window take the global path.
 
     ``chunk_size=None`` sizes POI chunks from the working set: about
     ``WORKSET_ARRAYS_3D`` subset-sized float32 arrays per POI plus its
@@ -193,10 +198,6 @@ class ICGN3D1(base.Module3D):
                  eval_mode: str = "lattice", device: DeviceLike = None):
         super().__init__(subset_radius_x, subset_radius_y, subset_radius_z,
                          device)
-        if eval_mode != "lattice":
-            raise NotImplementedError(
-                f"ICGN3D1: eval_mode={eval_mode!r} (the TPU's tile-LUT "
-                "layout) is not ported; use 'lattice'")
         self.conv_criterion = float(conv_criterion)
         self.stop_condition = float(stop_condition)
         self.chunk_size = chunk_size

@@ -6,13 +6,16 @@ The reference wraps OpenCV's CPU SIFT and matches with FLANN's approximate
 description run on the device (ops/sift2d.py, the JAX package's re-
 implementation of OpenCV's SIFT), and matching is one distance matmul with
 an exact top-2.  ``compute`` reads the matched keypoints back to the host
-once.  ``backend="opencv"`` (the JAX package's host cross-check) is not
-ported: OpenCV may be absent where the port runs.
+once.  ``backend="opencv"`` (or ``OPENCORR_SIFT2D=opencv`` when no backend
+is given, as in the JAX package) detects with OpenCV's CPU SIFT, the
+reference's own detector, and matches on the device as above; it needs
+``cv2`` and raises ImportError where that is missing, with no fallback.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -39,16 +42,17 @@ _PAD = 2048
 
 
 class SIFT2D:
-    """``octave_stats`` lists, per image and octave, the candidate count
-    beside its cap ``k_raw`` and the refined keypoints and orientation
-    instances beside ``k_kp`` (a cap hit changes which keypoints exist)."""
+    """``backend``: ``"opencv"`` detects with ``cv2.SIFT_create``; any
+    other value the device detector (the default, as the JAX package's
+    ``"tpu"``); None reads ``OPENCORR_SIFT2D``.  ``octave_stats`` lists,
+    per image and octave, the device detector's candidate count beside its
+    cap ``k_raw`` and the refined keypoints and orientation instances
+    beside ``k_kp`` (a cap hit changes which keypoints exist)."""
 
     def __init__(self, backend: Optional[str] = None,
                  device: DeviceLike = None):
-        if backend not in (None, "device"):
-            raise NotImplementedError(
-                f"SIFT2D: backend={backend!r} is not ported; the port "
-                "detects on its device")
+        self.backend = backend or os.environ.get("OPENCORR_SIFT2D",
+                                                 "device")
         self.device = resolve_device(device)
         self.sift_config = Sift2dConfig()
         self.matching_ratio = 0.8  # oc_sift.cpp:29
@@ -97,6 +101,9 @@ class SIFT2D:
     def compute(self) -> None:
         self.octave_stats = []
         cfg = self.sift_config
+        if self.backend == "opencv":
+            self._compute_opencv()
+            return
         if cfg.n_features > 0:
             # retainBest sorts responses on the host
             rp, rd, _, _, rr = sift_ops.gather_keypoints(
@@ -116,6 +123,35 @@ class SIFT2D:
         txy = torch.stack([tx, ty], -1).cpu().numpy()
         self.ref_matched_kp = rxy[keep]
         self.tar_matched_kp = txy[idx[keep]]
+
+    def _compute_opencv(self) -> None:
+        """OpenCV's SIFT with the config on the 8-bit images (values
+        clipped to [0, 255]), then the exact device match."""
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError("SIFT2D(backend='opencv') needs cv2 "
+                              "(OpenCV), which is not installed") from e
+        cfg = self.sift_config
+        sift = cv2.SIFT_create(
+            nfeatures=cfg.n_features, nOctaveLayers=cfg.n_octave_layers,
+            contrastThreshold=cfg.contrast_threshold,
+            edgeThreshold=cfg.edge_threshold, sigma=cfg.sigma)
+        found = []
+        for img in (self.ref_img, self.tar_img):
+            u8 = img.clamp(0, 255).to(torch.uint8).cpu().numpy()
+            kp, desc = sift.detectAndCompute(u8, None)
+            found.append((np.array([k.pt for k in kp], np.float32)
+                          .reshape(-1, 2), desc))
+        (ref_pts, ref_desc), (tar_pts, tar_desc) = found
+        if ref_desc is None or tar_desc is None or len(ref_pts) == 0 \
+                or len(tar_pts) < 2:
+            self.ref_matched_kp = np.zeros((0, 2), np.float32)
+            self.tar_matched_kp = np.zeros((0, 2), np.float32)
+            return
+        keep, idx = self._match_host(ref_desc, tar_desc)
+        self.ref_matched_kp = ref_pts[keep]
+        self.tar_matched_kp = tar_pts[idx[keep]]
 
     def _match_host(self, ref_desc, tar_desc):
         """Exact matching of host descriptor arrays, padded to a multiple

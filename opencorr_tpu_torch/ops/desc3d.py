@@ -36,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.precision import f32
+from ..utils.precision import bf16_round, f32
 from . import _kernels
 from .sift3d import (EPS10, ICOSA_TRIPLETS, ICOSA_VERTICES, IMG_BORDER,
                      _normalise)
@@ -168,7 +168,7 @@ def _tent_bins(sub):
 
 
 def hist_from_tables(gxw, gyw, gzw, wz, pz, pz2, wyx, px, py, pyx2, rot, *,
-                     scale, counts=None):
+                     scale, counts=None, hist_bf16: bool = False):
     """The [K, 60, 64] deferred histogram S in plain PyTorch, with the
     arguments of the JAX package's ``pallas_desc.descriptor_hist`` (see
     :func:`hist_inputs`); rot is [K, 9] (row-major rows of the 3x3).
@@ -177,7 +177,9 @@ def hist_from_tables(gxw, gyw, gzw, wz, pz, pz2, wyx, px, py, pyx2, rot, *,
     sub-cube coordinates, face and alpha as the kernel does, and adds the
     24 products alpha * g_a * wz * (wy * wx) of each live voxel into its
     rows a*20+t with ``index_add_``.  ``counts``, a dict, receives the
-    number of in-sphere and of live keypoint-voxels."""
+    number of in-sphere and of live keypoint-voxels.  ``hist_bf16`` rounds
+    the two factors alpha * g_a and wz * (wy * wx) to bfloat16 (nearest
+    even) before their product, as the JAX kernel's bf16 operands do."""
     nf, dhat, _ = _face_tables()
     r2, cr, inv_cr, _ = _radii(scale)
     cz, k, cyx = gxw.shape
@@ -222,13 +224,14 @@ def hist_from_tables(gxw, gyw, gzw, wz, pz, pz2, wyx, px, py, pyx2, rot, *,
                       (subs[2], subs[1], subs[0]))
         rows = (kbase.expand(k, cyx).reshape(-1)[live] + face * 64)
         idx, val = [], []
+        rnd = bf16_round if hist_bf16 else (lambda a: a)
         for a in range(3):
-            ag = alpha * ggl[a]
+            ag = rnd(alpha * ggl[a])
             for bz, wzv in tz:
                 for by, wyv in ty:
                     for bx, wxv in tx:
                         idx.append(rows + a * 1280 + ((bz * 4 + by) * 4 + bx))
-                        val.append(ag * (wzv * (wyv * wxv)))
+                        val.append(ag * rnd(wzv * (wyv * wxv)))
         s_flat.index_add_(0, torch.cat(idx), torch.cat(val))
     if counts is not None:
         counts["sphere_voxels"] = counts.get("sphere_voxels", 0) + n_sphere
@@ -237,17 +240,18 @@ def hist_from_tables(gxw, gyw, gzw, wz, pz, pz2, wyx, px, py, pyx2, rot, *,
 
 
 def descriptor_hist_plain(vol, starts, tab, rot, *, crop, scale, unit_xyz,
-                          counts=None):
+                          counts=None, hist_bf16: bool = False):
     """The kernel's contract in plain PyTorch: :func:`hist_inputs` then
     :func:`hist_from_tables`."""
     args = hist_inputs(vol, starts, tab, crop=crop, unit_xyz=unit_xyz)
     return hist_from_tables(*args, rot.reshape(-1, 9), scale=scale,
-                            counts=counts)
+                            counts=counts, hist_bf16=hist_bf16)
 
 
-def bind(lib: ctypes.CDLL):
-    """The kernel's C entry point in a loaded library, typed."""
-    fn = lib.oc_desc3d_hist
+def bind(lib: ctypes.CDLL, hist_bf16: bool = False):
+    """The kernel's C entry point in a loaded library, typed: the float32
+    instance, or with ``hist_bf16`` the bfloat16-operand one."""
+    fn = lib.oc_desc3d_hist_bf16 if hist_bf16 else lib.oc_desc3d_hist
     fn.argtypes = [_P] * 5 + [_I] * 7 + [_F] * 7 + [_P, _P]
     fn.restype = _I
     return fn
@@ -268,15 +272,17 @@ def c_args(vol, starts, tab, rot, out, *, crop, scale, unit_xyz):
             normals)
 
 
-def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz):
+def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz,
+                    hist_bf16: bool = False):
     """[K, 60, 64] deferred histogram S of K keypoints of one layer.
 
     vol [dz, dy, dx] float32 layer; starts [K, 3] int32 window starts and
     tab [K, 3, CZ+CY+CX] float32 per-axis tables from
     :func:`prepare_tables`; rot [K, 3, 3] or [K, 9].  ``crop`` (z, y, x)
     active radii, ``scale`` the layer's physical scale, ``unit_xyz`` its
-    voxel pitch.  Float atomics make the kernel's summation order vary
-    from run to run."""
+    voxel pitch.  ``hist_bf16`` rounds both factors of every product to
+    bfloat16 first (the JAX package's bf16 operands).  Float atomics make
+    the kernel's summation order vary from run to run."""
     k = starts.shape[0]
     cz, cy, cx = (2 * c + 1 for c in crop)
     if vol.dim() != 3:
@@ -291,7 +297,8 @@ def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz):
                          f"{tuple(vol.shape)}")
     if vol.device.type == "cpu":
         return descriptor_hist_plain(vol, starts, tab, rot, crop=crop,
-                                     scale=scale, unit_xyz=unit_xyz)
+                                     scale=scale, unit_xyz=unit_xyz,
+                                     hist_bf16=hist_bf16)
     if vol.device.type != "cuda":
         raise ValueError(f"unsupported device {vol.device}")
     for name, t, dt in (("vol", vol, torch.float32),
@@ -304,7 +311,7 @@ def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz):
     out = torch.zeros((k, 60, 64), dtype=torch.float32, device=vol.device)
     if k:
         with torch.cuda.device(vol.device):
-            fn = bind(_kernels.load("desc3d"))
+            fn = bind(_kernels.load("desc3d"), hist_bf16)
             args = c_args(vol, starts, tab, rot, out, crop=crop, scale=scale,
                           unit_xyz=unit_xyz)
             _kernels.launch(descriptor_hist, lambda: fn(*args[:-1]),
@@ -319,7 +326,7 @@ descriptor_hist.events = None
 
 
 def construct_descriptor_fused(vol, xi, yi, zi, rot, truncate, *, crop,
-                               scale, unit_xyz):
+                               scale, unit_xyz, hist_bf16: bool = False):
     """[K, 768] descriptors through the fused histogram: the tables, S,
     the W' fold and the reference's normalize -> truncate -> renormalize
     (oc_sift.cpp:1217-1248)."""
@@ -327,14 +334,15 @@ def construct_descriptor_fused(vol, xi, yi, zi, rot, truncate, *, crop,
     starts, tab = prepare_tables(vol.shape, xi, yi, zi, crop=crop,
                                  scale=scale, unit_xyz=unit_xyz)
     s_hist = descriptor_hist(vol, starts, tab, rot.reshape(k, 9).contiguous(),
-                             crop=crop, scale=scale, unit_xyz=unit_xyz)
+                             crop=crop, scale=scale, unit_xyz=unit_xyz,
+                             hist_bf16=hist_bf16)
     w_fold = torch.from_numpy(_face_tables()[2]).to(vol.device)
     desc = torch.matmul(w_fold, s_hist)  # [K, 12, 64]
     return _normalise(desc.transpose(1, 2).reshape(k, 768), truncate)
 
 
 def describe_keypoints_fused(vol, xi, yi, zi, rot, truncate, *, crop, scale,
-                             unit_xyz):
+                             unit_xyz, hist_bf16: bool = False):
     """:func:`construct_descriptor_fused` over a layer's keypoints: one
     kernel launch for all of them on the card; on the CPU in chunks that
     keep the plain version's windows near 256 MB."""
@@ -349,5 +357,5 @@ def describe_keypoints_fused(vol, xi, yi, zi, rot, truncate, *, crop, scale,
         sl = slice(lo, lo + chunk)
         out.append(construct_descriptor_fused(
             vol, xi[sl], yi[sl], zi[sl], rot[sl], truncate, crop=crop,
-            scale=scale, unit_xyz=unit_xyz))
+            scale=scale, unit_xyz=unit_xyz, hist_bf16=hist_bf16))
     return torch.cat(out)

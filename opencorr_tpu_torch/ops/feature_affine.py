@@ -2,7 +2,8 @@
 keypoints, in 2D (oc_feature_affine.cpp:118-342) and 3D (:347-560).
 
 Per POI: the candidate keypoints (a host k-d tree, see
-``models/feature_affine.py``), then ``trials`` RANSAC trials at once, each
+``models/feature_affine.py``, or the all-pairs search on the device,
+:func:`device_candidates`), then ``trials`` RANSAC trials at once, each
 fitting an affine to 3 (2D) or 4 (3D) distinct random candidates and
 counting the consensus set; the best set (the first maximum) gets a
 least-squares affine, which gives the 6 first-order DIC or the 12 DVC
@@ -21,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.precision import f32
+from ..utils.precision import f32, fma
 from .linalg import normal_product, solve_small
 
 
@@ -33,6 +34,90 @@ def ransac_draws(seed: int, n: int, trials: int,
     gen = torch.Generator().manual_seed(int(seed))
     return torch.randint(0, 1 << 30, (samples, n, trials), generator=gen,
                          dtype=torch.int64)
+
+
+# bytes of [rows, keypoints] work arrays one chunk of the device search may
+# fill, at ``SEARCH_ENTRY_BYTES`` an entry (the float32 differences, the
+# float64 fused sums, the distance and the int64 sort key)
+SEARCH_BUDGET = 1 << 30
+SEARCH_ENTRY_BYTES = 48
+
+
+def squared_distances(q: torch.Tensor, kp: torch.Tensor, *,
+                      fused: bool = True) -> torch.Tensor:
+    """[N, M] squared distances between query points q [N, D] and keypoints
+    kp [M, D] in float32, (x - kx)^2 + (y - ky)^2 (+ (z - kz)^2).
+
+    ``fused`` rounds them as XLA compiles the JAX package's device search
+    for the CPU: dy^2 rounded, then fused multiply-adds dx^2 + that, then
+    dz^2 + that (``utils/precision.fma``).  Otherwise each square rounds
+    and the sum runs left to right, as numpy computes the self-adaptive
+    subsets' distances."""
+    diffs = [q[:, a, None] - kp[None, :, a] for a in range(q.shape[1])]
+    if not fused:
+        d2 = diffs[0] * diffs[0]
+        for d in diffs[1:]:
+            d2 += d * d
+        return d2
+    d2 = diffs[1] * diffs[1]
+    for d in [diffs[0]] + diffs[2:]:
+        d2 = fma(d, d, d2)
+    return d2
+
+
+def nearest(d2: torch.Tensor, k: int):
+    """The k smallest entries of every row of d2 (float32 >= 0) in
+    ascending order, the lower column first among equal values, as
+    ``jax.lax.top_k`` orders them: (values [N, k], columns [N, k] int64).
+    A non-negative float's bits order as the float does, so one int64 key
+    (bits << 32 | column) ranks distance, then column."""
+    col = torch.arange(d2.shape[1], device=d2.device)
+    key = (d2.view(torch.int32).to(torch.int64) << 32) | col
+    top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    idx = top & 0xFFFFFFFF
+    return torch.gather(d2, 1, idx), idx
+
+
+def device_candidates(ref_kp: torch.Tensor, q: torch.Tensor, radius: float,
+                      neighbor_min: int, samples: int, k_cap: int, *,
+                      knn_k=None, fused: bool = True):
+    """The JAX package's device neighbour stage (``feature_affine_2d``/
+    ``_3d``): every POI's squared distance to every keypoint, the
+    in-radius count nr, the kc = min(k_cap, M) nearest in ascending
+    distance, and the candidate mask: the in-radius ones where nr reaches
+    ``neighbor_min``, else the nearest ``neighbor_min``; with ``knn_k``
+    (self-adaptive mode) the nearest ``knn_k``.  ``enough``: nr >= samples,
+    or with ``knn_k`` at least ``samples`` candidates.  ``fused``: the
+    distances' rounding (:func:`squared_distances`).  In row chunks of at
+    most ``SEARCH_BUDGET`` bytes of work arrays.  Returns (idx [N, kc]
+    int32, cand_mask [N, kc] bool, enough [N] bool) on q's device."""
+    n, m = q.shape[0], ref_kp.shape[0]
+    kc = min(int(k_cap), m)
+    r2 = f32(f32(radius) * f32(radius))
+    nmin = f32(neighbor_min)
+    pos = torch.arange(kc, dtype=torch.float32, device=q.device)[None, :]
+    rows = max(1, SEARCH_BUDGET // (SEARCH_ENTRY_BYTES * max(m, 1)))
+    idxs, cands, enoughs = [], [], []
+    for lo in range(0, n, rows):
+        d2 = squared_distances(q[lo:lo + rows], ref_kp, fused=fused)
+        cand_d2, idx = nearest(d2, kc)
+        if knn_k is not None:
+            cand = (pos < f32(knn_k)).expand(idx.shape[0], kc)
+            enough = cand.sum(1) >= samples
+        else:
+            nr = (d2 < r2).sum(1)
+            cand = torch.where((nr >= nmin)[:, None], cand_d2 < r2,
+                               pos < nmin)
+            enough = nr >= samples
+        del d2
+        idxs.append(idx.to(torch.int32))
+        cands.append(cand)
+        enoughs.append(enough)
+    if not idxs:
+        return (torch.zeros((0, kc), dtype=torch.int32, device=q.device),
+                torch.zeros((0, kc), dtype=torch.bool, device=q.device),
+                torch.zeros((0,), dtype=torch.bool, device=q.device))
+    return torch.cat(idxs), torch.cat(cands), torch.cat(enoughs)
 
 
 def feature_affine_2d_idx(ref_kp, tar_kp, xs, ys, idx, cand_mask, enough,

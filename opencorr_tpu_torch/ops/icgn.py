@@ -414,7 +414,7 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
            max_iter: float, tar_img: Optional[torch.Tensor] = None, *,
            order: int = 1, rx: int, ry: int,
            center_offset: Optional[torch.Tensor] = None,
-           window_margin: Optional[int] = None,
+           window_margin: Optional[int] = None, eval_mode: str = "lattice",
            stats: Optional[collections.Counter] = None):
     """First- or second-order IC-GN over a POI queue.
 
@@ -422,9 +422,10 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     ``center_offset`` [N, 2] (the stereo overload, oc_icgn.cpp:353-560)
     moves each target subset's center to (x + ox, y + oy) and offsets the
     local coordinates of the steepest-descent images by (-ox, -oy); None
-    is the plain path.  ``window_margin`` None evaluates every sample
-    through the global per-pixel LUT; an int M uses per-POI target windows
-    of half-extent r+M around the seeded target center and the lattice
+    is the plain path.  ``window_margin`` None, or an ``eval_mode`` other
+    than "lattice" (as in the JAX package), evaluates every sample through
+    the global per-pixel LUT; an int M uses per-POI target windows of
+    half-extent r+M around the seeded target center and the lattice
     kernel, where a sample leaving its window reads as out of range (-3).
     ``stats``, when given, counts the eval branches and loop phases
     taken.  It computes in the images' dtype: float32 as the package runs
@@ -471,7 +472,7 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     hinv = linalg_ops.inv_small(hessian(sd))
     wmat0, warp_from_p, p_from_warp = warp_start(order, p_in)
 
-    if window_margin is not None:
+    if window_margin is not None and eval_mode == "lattice":
         if tar_img is None:
             raise ValueError("icgn2d: the windowed eval needs tar_img")
         ev_state, ev_fn = make_windowed_eval2d_state(
@@ -758,6 +759,37 @@ def _lattice_eval3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
     return eval_tar
 
 
+def _tile_eval3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
+                 margin):
+    """The windowed path's values without a tile layout (JAX
+    ``icgn.py:905-953``, ``eval_mode="tile"``): every sample through the
+    global coefficient volume (the JAX package's tile LUT gives the same
+    values bit for bit), and a sample whose localised integer floor leaves
+    [1, sw - 3] of its POI's coefficient window (half-extent r+margin on
+    the seeded center), or the volume, reads -1."""
+    dz_, dy_, dx_ = coeff.shape
+    fdt = coeff.dtype
+    bounds = []
+    for c, u, r, dim in ((xs, u_in, rx, dx_), (ys, v_in, ry, dy_),
+                         (zs, w_in, rz, dz_)):
+        sw = 2 * (r + margin) + 1
+        wc = torch.clamp(torch.floor(c + u).to(_I32) - (r + margin), 0,
+                         dim - sw)
+        bounds.append((wc.to(fdt)[:, None], sw))
+    two = torch.full((), 2.0, dtype=fdt, device=coeff.device)
+
+    def eval_tar(gxc, gyc, gzc, active):
+        # -1 and oob where a sample leaves the volume (or is NaN)
+        tval, oob = bspline.tricubic_eval(coeff, gxc, gyc, gzc)
+        for g, (wcf, sw) in zip((gxc, gyc, gzc), bounds):
+            loc = torch.where(oob, two, g - wcf)
+            e = torch.floor(loc.clamp(-9.0, sw + 9.0)).to(_I32)
+            oob |= (e < 1) | (e > sw - 3)
+        return torch.where(oob, torch.full_like(tval, -1.0), tval)
+
+    return eval_tar
+
+
 def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
             ref_vol: torch.Tensor, tar_coeff: torch.Tensor, xs: torch.Tensor,
             ys: torch.Tensor, zs: torch.Tensor, p_in: torch.Tensor,
@@ -770,8 +802,11 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     Returns (p_out [N,12], u0, v0, w0, zncc, iteration, convergence,
     computed).  ``window_margin`` None evaluates every sample through the
     global coefficient volume; an int M evaluates through per-POI windows
-    of half-extent r+M and the lattice kernel (:func:`_lattice_eval3d`),
-    where a sample leaving its window reads as out of range (-3).  The
+    of half-extent r+M, where a sample leaving its window reads as out of
+    range (-3): with ``eval_mode="tile"`` at the global eval's values
+    (:func:`_tile_eval3d`), with any other mode (the default "lattice", as
+    in the JAX package) through the lattice kernel
+    (:func:`_lattice_eval3d`).  The
     convergence norm takes the displacement increments only
     (oc_icgn.cpp:1445).  ``z_guard_lo``/``z_guard_hi`` (floats; None or
     +-inf turns a side off) tighten the range guard along z, as the sharded
@@ -780,10 +815,6 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     iterations, lattice launches and fallback iterations.  It computes in
     the volumes' dtype: float32 as the package runs it, float64 for a
     reference replay on the CPU."""
-    if eval_mode != "lattice":
-        raise NotImplementedError(
-            f"icgn3d1: eval_mode={eval_mode!r} is the TPU's tile-LUT layout "
-            "and is not ported; the port evaluates with the lattice kernel")
     z_guarded = z_guard_lo is not None or z_guard_hi is not None
     z_lo = -float("inf") if z_guard_lo is None else float(z_guard_lo)
     z_hi = float("inf") if z_guard_hi is None else float(z_guard_hi)
@@ -837,7 +868,10 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
 
     wmat0 = warp_ops.warp3d1_from_p(p_in)
 
-    if window_margin is not None:
+    if window_margin is not None and eval_mode == "tile":
+        eval_tar = _tile_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
+                                rx=rx, ry=ry, rz=rz, margin=window_margin)
+    elif window_margin is not None:
         eval_tar = _lattice_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
                                    rx=rx, ry=ry, rz=rz, margin=window_margin,
                                    count=count)

@@ -91,11 +91,13 @@ def iclm2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
            max_iter: float, damping: Sequence[float],
            tar_img: Optional[torch.Tensor] = None, *, order: int, rx: int,
            ry: int, window_margin: Optional[int] = None,
+           eval_mode: str = "lattice",
            stats: Optional[collections.Counter] = None):
     """First- or second-order IC-LM over a POI queue; ``damping`` is
-    (lambda, alpha, beta).  ``window_margin`` None evaluates the target
-    through the global per-pixel LUT; an int M through per-POI windows of
-    half-extent r+M around the seeded center and the lattice kernel
+    (lambda, alpha, beta).  ``window_margin`` None, or an ``eval_mode``
+    other than "lattice", evaluates the target through the global
+    per-pixel LUT; an int M through per-POI windows of half-extent r+M
+    around the seeded center and the lattice kernel
     (``ops/icgn.make_windowed_eval2d``).  ``stats`` counts the eval
     branches and iterations.  Returns (p_out [N,12], u0, v0, zncc,
     iteration, convergence, computed)."""
@@ -115,7 +117,7 @@ def iclm2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
     xl, yl = local_grid(rx, ry, ref_img.dtype, ref_img.device)
     sd = sd_images(cut(gx), cut(gy), xl, yl, order)
-    if window_margin is not None:
+    if window_margin is not None and eval_mode == "lattice":
         if tar_img is None:
             raise ValueError("iclm2d: the windowed eval needs tar_img")
         ev = make_windowed_eval2d(tar_img, tar_lut, xs, ys, u_in, v_in,

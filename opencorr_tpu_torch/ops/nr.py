@@ -37,11 +37,12 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
           tar_img: Optional[torch.Tensor] = None,
           tar_gx_img: Optional[torch.Tensor] = None,
           tar_gy_img: Optional[torch.Tensor] = None, *, rx: int, ry: int,
-          window_margin: Optional[int] = None,
+          window_margin: Optional[int] = None, eval_mode: str = "lattice",
           stats: Optional[collections.Counter] = None):
-    """First-order NR over a POI queue.  ``window_margin`` None evaluates
-    the target and its gradients through their global LUTs; an int M
-    through three windowed evals (``ops/icgn.make_windowed_eval2d``), each
+    """First-order NR over a POI queue.  ``window_margin`` None, or an
+    ``eval_mode`` other than "lattice", evaluates the target and its
+    gradients through their global LUTs; an int M through three windowed
+    evals (``ops/icgn.make_windowed_eval2d``), each
     on its own image and LUT.  Returns (p_out [N,12], u0, v0, zncc,
     iteration, convergence, computed)."""
     h, w = ref_img.shape
@@ -59,7 +60,7 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
 
     pairs = ((tar_img, tar_lut), (tar_gx_img, tar_lut_gx),
              (tar_gy_img, tar_lut_gy))
-    if window_margin is not None:
+    if window_margin is not None and eval_mode == "lattice":
         if any(img is None for img, _ in pairs):
             raise ValueError("nr2d1: the windowed eval needs the target "
                              "image and both gradient images")

@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.precision import f32, fma
+from ..utils.precision import bf16_round, f32, fma
 
 IMG_BORDER = 1  # oc_sift.h:22
 
@@ -475,15 +475,15 @@ def construct_descriptor(win, x0, y0, z0, xi, yi, zi, dims, rot, scale,
 
     ``crop`` (z, y, x active radii) keeps only the box around the keypoint
     that can hold in-sphere voxels.  The histogram runs in voxel slabs of
-    at most ``SLAB_ELEMS`` keypoint-voxels.  ``parts`` and ``hist_bf16``
-    are the JAX package's benchmark and bf16 options, not ported."""
+    at most ``SLAB_ELEMS`` keypoint-voxels.  ``hist_bf16`` rounds the two
+    operands of the histogram product (vertex and cube weights) to
+    bfloat16, nearest even, and sums their exact products in float32, as
+    the JAX package's option does.  ``parts`` is the JAX package's
+    benchmark knob, not ported."""
     if parts != "full":
         raise NotImplementedError(
             f"construct_descriptor: parts={parts!r} is a benchmark knob of "
             "the JAX package and is not ported")
-    if hist_bf16:
-        raise NotImplementedError(
-            "construct_descriptor: hist_bf16 is not ported (float32 only)")
     fl = torch.float32
     dev = win.device
     k = xi.shape[0]
@@ -604,13 +604,15 @@ def construct_descriptor(win, x0, y0, z0, xi, yi, zi, dims, rot, scale,
         cube_w = (wz[:, :, :, None, None] * wy[:, :, None, :, None]
                   * wx[:, :, None, None, :]).reshape(k, -1, 64)
         vert_w = vw0 * mgf[..., None]
+        if hist_bf16:
+            vert_w, cube_w = (bf16_round(a) for a in (vert_w, cube_w))
         desc += torch.bmm(vert_w.transpose(1, 2), cube_w)
     desc = desc.transpose(1, 2).reshape(k, 768)
     return _normalise(desc, truncate)
 
 
 def describe_keypoints(vol, xi, yi, zi, rot, scale, unit_xyz, truncate, *, r,
-                       crop=None) -> torch.Tensor:
+                       crop=None, hist_bf16: bool = False) -> torch.Tensor:
     """Window gather + :func:`construct_descriptor` over the given
     keypoints, chunked by :func:`work_budget`.  Returns [K, 768]."""
     dz, dy, dx = vol.shape
@@ -623,7 +625,7 @@ def describe_keypoints(vol, xi, yi, zi, rot, scale, unit_xyz, truncate, *, r,
         win, x0, y0, z0 = gather_windows_3d(vol, xi[sl], yi[sl], zi[sl], r)
         out.append(construct_descriptor(
             win, x0, y0, z0, xi[sl], yi[sl], zi[sl], (dx, dy, dz), rot[sl],
-            scale, unit_xyz, truncate, crop=crop))
+            scale, unit_xyz, truncate, crop=crop, hist_bf16=hist_bf16))
     return torch.cat(out)
 
 
@@ -636,7 +638,7 @@ def crop_fits(crop, dims) -> bool:
 
 
 def octave_features(seed, cfg, *, sigmas, unit_xyz, downsample_to,
-                    layer_params, seed_layer: int):
+                    layer_params, seed_layer: int, hist_bf16: bool = False):
     """An octave's feature path: downsample + blur chain + DoGs, then per
     extraction layer the extrema compaction, orientation of the live
     candidates, the survivors' compaction and their descriptors.
@@ -667,11 +669,12 @@ def octave_features(seed, cfg, *, sigmas, unit_xyz, downsample_to,
         if fused:
             desc = desc3d.describe_keypoints_fused(
                 g[n], xd, yd, zd, rotd, cfg.truncate_threshold, crop=crop,
-                scale=scale, unit_xyz=unit_xyz)
+                scale=scale, unit_xyz=unit_xyz, hist_bf16=hist_bf16)
         else:
             desc = describe_keypoints(
                 g[n], xd, yd, zd, rotd, scale, unit_xyz,
-                cfg.truncate_threshold, r=r_d, crop=crop)
+                cfg.truncate_threshold, r=r_d, crop=crop,
+                hist_bf16=hist_bf16)
         stats = dict(layer=n, dims=list(g[n].shape), candidates=count,
                      k_e=k_e, oriented=survivors, k_d=k_d, kept=kept,
                      crop=list(crop), fused=fused)

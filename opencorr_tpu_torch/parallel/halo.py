@@ -155,7 +155,8 @@ class ShardedICGN3D1:
     to float32 on the device), refines the POIs of its block, and ends with
     the whole refined table.
 
-    ``window_margin`` selects the windowed lattice eval as in ICGN3D1.  The
+    ``window_margin`` and ``eval_mode`` ("lattice" or "tile") select the
+    windowed eval as in ICGN3D1.  The
     halo, rz + max(9, margin + 1), keeps a POI's coefficient window inside
     the extended block for seeds within about 1 voxel of the block's edge;
     larger seeds read edge-clipped windows as the single-device module
@@ -174,10 +175,6 @@ class ShardedICGN3D1:
                  stop_condition: float = 10,
                  window_margin: Optional[int] = 8,
                  eval_mode: str = "lattice"):
-        if eval_mode != "lattice":
-            raise NotImplementedError(
-                f"ShardedICGN3D1: eval_mode={eval_mode!r} (the TPU's "
-                "tile-LUT layout) is not ported; use 'lattice'")
         self.rx = int(subset_radius_x)
         self.ry = int(subset_radius_y)
         self.rz = int(subset_radius_z)

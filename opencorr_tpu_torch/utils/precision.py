@@ -38,6 +38,13 @@ def fma(a, b, c):
     return (d(a) * d(b) + d(c)).float()
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor rounded to bfloat16 (nearest even) and back: the
+    operand rounding of the JAX package's bf16 histogram option.  The
+    product of two such values is exact in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device a module or function runs on.
 

@@ -356,7 +356,7 @@ def test_sift3d_slice_cuda_match_cpu(cuda):
     tar = ndshift(base, (2.0, -1.0, 1.5), order=3)[10:62, 10:62, 10:62]
     out = {}
     for dev in ("cuda", "cpu"):
-        s = ot.SIFT3D(device=dev)
+        s = ot.SIFT3D(pyramid_backend="device", device=dev)
         s.set_images(np.ascontiguousarray(ref), np.ascontiguousarray(tar))
         before = desc3d.descriptor_hist.launches
         s.compute()
@@ -365,6 +365,156 @@ def test_sift3d_slice_cuda_match_cpu(cuda):
                     desc3d.descriptor_hist.launches - before)
     assert out["cuda"][:3] == out["cpu"][:3]
     assert out["cuda"][3] == 2 and out["cpu"][3] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop_r,scale,k", [(23, 1.6, 40), (36, 2.5398, 1100)])
+def test_desc3d_kernel_bf16_vs_plain(cuda, crop_r, scale, k):
+    """The bfloat16-operand instance (``hist_bf16``) against the plain
+    version with the same flag: both round the same float32 factors, so
+    within 1e-5 x max|S| (the sums' order); and away from the float32
+    histogram."""
+    crop = (crop_r,) * 3
+    args = [a.to(cuda) for a in _desc_inputs(k, crop, scale, seed=k,
+                                             blur=1.6)]
+    kw = dict(crop=crop, scale=scale, unit_xyz=(1.0, 1.0, 1.0))
+    got = desc3d.descriptor_hist(*args, hist_bf16=True, **kw)
+    f32 = desc3d.descriptor_hist(*args, **kw)
+    want = torch.cat([desc3d.descriptor_hist_plain(
+        *(a[lo:lo + 300] if i else a for i, a in enumerate(args)),
+        hist_bf16=True, **kw) for lo in range(0, k, 300)])
+    torch.cuda.synchronize()
+    m = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * m
+    assert float((f32 - want).abs().max()) > 1e-4 * m
+
+
+@pytest.mark.cuda
+def test_sift3d_host_path_cuda_match_cpu(cuda):
+    """SIFT3D's host path (the default) on cuda (kernel 4 on the layers its
+    route allows) and on the cpu: equal keypoints and matched sets; the
+    descriptor stage on the cpu's keypoints and rotations within 1e-5 x
+    max|desc| on every layer.  (The devices' own rotations differ by
+    float32 noise, which moves a few descriptors by about 1e-3.)"""
+    import opencorr_tpu_torch as ot
+    from scipy.ndimage import gaussian_filter, shift as ndshift
+    from opencorr_tpu_torch.ops import sift3d as ops3d
+
+    rng = np.random.default_rng(2)
+    base = (gaussian_filter(rng.standard_normal((72, 72, 72)), 1.5) * 50
+            + 128).astype(np.float32)
+    ref = np.ascontiguousarray(base[10:62, 10:62, 10:62])
+    tar = np.ascontiguousarray(
+        ndshift(base, (2.0, -1.0, 1.5), order=3)[10:62, 10:62, 10:62])
+    mods, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        s = ot.SIFT3D(device=dev)
+        s.set_images(ref, tar)
+        before = desc3d.descriptor_hist.launches
+        s.compute()
+        mods[dev] = s
+        launches[dev] = desc3d.descriptor_hist.launches - before
+    c, p = mods["cuda"], mods["cpu"]
+    assert (c.ref_kp_count, c.tar_kp_count) == (p.ref_kp_count,
+                                                p.tar_kp_count)
+    np.testing.assert_array_equal(c.ref_matched_kp, p.ref_matched_kp)
+    np.testing.assert_array_equal(c.tar_matched_kp, p.tar_matched_kp)
+    assert launches["cuda"] == 2 and launches["cpu"] == 0
+    plan, vols = p._gaussian_pyramid(torch.from_numpy(ref))
+    kp = p._extract(torch.from_numpy(ref), "ref")[0].numpy()
+    cfg = p.sift_config
+    routes = set()
+    for m in range(cfg.n_octave):
+        for n in range(1, cfg.n_octave_layers + 1):
+            sel = (kp[:, 3] == m) & (kp[:, 4] == n)
+            if not sel.any():
+                continue
+            i = m * (cfg.n_octave_layers + 3) + n
+            g, vg = plan[i], vols[i]
+            x, y, z = (torch.from_numpy((kp[sel, j] / 2 ** m).astype(
+                np.int64)) for j in range(3))
+            win, x0, y0, z0 = ops3d.gather_windows_3d(vg, x, y, z,
+                                                      p._radii(g)[0])
+            rot = ops3d.assign_orientation(
+                win, x0, y0, z0, x, y, z, tuple(vg.shape[::-1]), g.scale,
+                g.units, cfg.gradient_threshold, cfg.beta, cfg.gamma)[0]
+            want, _, route = p._describe(vg, g, x, y, z, rot)
+            got, _, _ = c._describe(vg.cuda(), g, x.cuda(), y.cuda(),
+                                    z.cuda(), rot.cuda())
+            routes.add(route)
+            m_ = float(want.abs().max())
+            assert float((got.cpu() - want).abs().max()) <= 1e-5 * m_
+    assert "kernel 4" in routes
+
+
+@pytest.mark.cuda
+def test_feature_affine_device_search_cuda_matches_cpu(cuda):
+    """The device neighbour search and FeatureAffine3D/2D on it: cuda equal
+    to cpu (indices, masks, codes; p within 1e-5)."""
+    import opencorr_tpu_torch as ot
+    from opencorr_tpu_torch.ops import feature_affine as fops
+
+    rng = np.random.default_rng(3)
+    for dim in (2, 3):
+        ref = rng.uniform(10, 200, (3000, dim)).astype(np.float32)
+        tar = ref + rng.normal(0, 0.2, ref.shape).astype(np.float32) + 1.5
+        q = rng.uniform(0, 210, (5000, dim)).astype(np.float32)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            outs[dev] = [a.cpu() for a in fops.device_candidates(
+                torch.from_numpy(ref).to(dev), torch.from_numpy(q).to(dev),
+                12.0, 7, dim + 1, 128)]
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            assert torch.equal(a, b)
+        tabs = {}
+        for dev in ("cuda", "cpu"):
+            if dim == 2:
+                m = ot.FeatureAffine2D(10, 10, neighbor_backend="device",
+                                       device=dev)
+                t = ot.new_table_2d(*q.T, device=dev)
+            else:
+                m = ot.FeatureAffine3D(10, 10, 10, neighbor_backend="device",
+                                       device=dev)
+                t = ot.new_table_3d(*q.T, device=dev)
+            m.set_keypoint_pair(ref, tar)
+            tabs[dev] = m.compute(t)
+        assert torch.equal(tabs["cuda"].r.cpu(), tabs["cpu"].r)
+        assert float((tabs["cuda"].p.cpu() - tabs["cpu"].p).abs().max()) \
+            <= 1e-5
+
+
+@pytest.mark.cuda
+def test_icgn3d1_tile_cuda_matches_cpu(cuda):
+    """``eval_mode="tile"``: cuda against cpu on the guard volumes, codes
+    equal and u/v/w within 1e-4 voxel; no lattice launch."""
+    from opencorr_tpu_torch.ops import bspline, gradient, icgn
+
+    ref, tar = _guard_volumes()
+    rng = np.random.default_rng(5)
+    n = 24
+    xs, ys, zs = (rng.uniform(10, 30, n).astype(np.float32)
+                  for _ in range(3))
+    p0 = np.zeros((n, 12), np.float32)
+    p0[:4, 0] = -1.7  # seeds whose iterates leave a 2-voxel window
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        r = torch.from_numpy(ref).to(dev)
+        before = lattice3d.lattice_eval_3d.launches
+        out = icgn.icgn3d1(
+            *(getattr(gradient, f"gradient_{a}_3d")(r) for a in "xyz"), r,
+            bspline.tricubic_prepare(torch.from_numpy(tar).to(dev)),
+            *(torch.from_numpy(a.copy()).to(dev) for a in (xs, ys, zs, p0)),
+            torch.zeros(n, device=dev), 0.001, 10.0, rx=6, ry=6, rz=6,
+            window_margin=2, eval_mode="tile")
+        assert lattice3d.lattice_eval_3d.launches == before
+        outs[dev] = [a.cpu() for a in out]
+    zc, zp = outs["cuda"][4], outs["cpu"][4]
+    assert torch.equal(torch.where(zc < 0, zc, 1.0), torch.where(zp < 0, zp,
+                                                                  1.0))
+    assert (zp[4:] > 0.9).all()
+    ok = zp > 0
+    d = (outs["cuda"][0] - outs["cpu"][0])[ok][:, [0, 4, 8]].abs().max()
+    assert float(d) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -186,11 +186,11 @@ def test_port_sources_name_no_jax():
 
 
 def test_top_level_exports_follow_jax():
-    """The port exports every name the JAX package's ``__init__`` does
-    (but ``ColorfulImage2D``, not ported yet), and, as there, the
-    multi-GPU classes and helpers only from ``parallel``."""
+    """The port exports every name the JAX package's ``__init__`` does,
+    and, as there, the multi-GPU classes and helpers only from
+    ``parallel``."""
     missing = set(oc.__all__) - set(ot.__all__)
-    assert missing == {"ColorfulImage2D"}, missing
+    assert missing == set(), missing
     for name in ("ShardedICGN3D1", "make_mesh", "halo_exchange_z",
                  "partition_pois_z", "assess", "SpeckleQuality"):
         assert not hasattr(oc, name) and not hasattr(ot, name)
@@ -217,19 +217,75 @@ def test_tf32_is_off():
 
 
 def test_unported_options_raise():
-    """What the port still leaves out raises; self-adaptive subsets are
-    ported (tests/test_torch_adaptive.py), except for NR2D1, which has
-    none."""
+    """Every option of the JAX package's 2D modules is ported: the
+    self-adaptive subsets (tests/test_torch_adaptive.py), SIFT2D's opencv
+    backend (tests/test_torch_stereo_sift2d.py), FeatureAffine2D's device
+    neighbour search (tests/test_torch_fa_device.py) and the refiners'
+    global ``eval_mode`` (tests/test_torch_iclm_nr.py) take their
+    settings; NR2D1 has no self-adaptive mode and raises, as the
+    reference has none."""
     for cls in (ot.ICGN2D1, ot.ICGN2D2, ot.ICLM2D1, ot.ICLM2D2):
-        m = cls(16, 16, device=CPU)
+        m = cls(16, 16, eval_mode="global", device=CPU)
         m.set_self_adaptive(True)
-        assert m.self_adaptive
+        assert m.self_adaptive and m.eval_mode == "global"
     with pytest.raises(NotImplementedError):
         ot.NR2D1(16, 16, device=CPU).set_self_adaptive(True)
-    with pytest.raises(NotImplementedError):
-        ot.SIFT2D(backend="opencv", device=CPU)
-    fa = ot.FeatureAffine2D(16, 16, device=CPU)
+    assert ot.SIFT2D(backend="opencv", device=CPU).backend == "opencv"
+    fa = ot.FeatureAffine2D(16, 16, neighbor_backend="device", device=CPU)
     fa.set_self_adaptive(True)
-    assert fa.self_adaptive
-    with pytest.raises(NotImplementedError):
-        ot.FeatureAffine2D(16, 16, neighbor_backend="device", device=CPU)
+    assert fa.self_adaptive and fa.neighbor_backend == "device"
+
+
+def test_sift2d_backend_follows_the_environment(monkeypatch):
+    """As in the JAX package, ``backend=None`` reads OPENCORR_SIFT2D."""
+    monkeypatch.setenv("OPENCORR_SIFT2D", "opencv")
+    assert ot.SIFT2D(device=CPU).backend == oc.SIFT2D().backend == "opencv"
+    monkeypatch.delenv("OPENCORR_SIFT2D")
+    assert ot.SIFT2D(device=CPU).backend == "device"
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sort_by_zncc_matches_jax(dim):
+    """sortByZNCC: stable, descending ZNCC; the same permutation and
+    reordered table (ties keep their order)."""
+    from opencorr_tpu.models import base as jbase
+    from opencorr_tpu_torch.models import base as tbase
+
+    rng = np.random.default_rng(dim)
+    n = 40
+    xyz = [rng.uniform(0, 100, n).astype(np.float32) for _ in range(dim)]
+    if dim == 2:
+        jt, tt = oc.new_table_2d(*xyz), ot.new_table_2d(*xyz, device=CPU)
+        width, col = 9, tpoi.R_ZNCC
+    else:
+        jt, tt = oc.new_table_3d(*xyz), ot.new_table_3d(*xyz, device=CPU)
+        width, col = 8, tpoi.R3_ZNCC
+    r = rng.uniform(-1, 1, (n, width)).astype(np.float32)
+    r[:, col] = np.round(rng.uniform(-1, 1, n), 1)  # ties
+    p = rng.standard_normal((n, 12)).astype(np.float32)
+    jt = jt.replace(r=r, p=p)
+    tt = tt.replace(r=torch.from_numpy(r), p=torch.from_numpy(p))
+    jout, jorder = jbase.sort_by_zncc(jt)
+    tout, torder = tbase.sort_by_zncc(tt)
+    np.testing.assert_array_equal(torder, jorder)
+    for f in type(tt).FIELDS:
+        np.testing.assert_array_equal(getattr(tout, f).numpy(),
+                                      np.asarray(getattr(jout, f)))
+    assert (np.diff(tout.zncc.numpy()) <= 0).all()
+
+
+def test_colorful_image_matches_jax(tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(4)
+    bgr = rng.integers(0, 256, (23, 31, 3)).astype(np.uint8)
+    path = str(tmp_path / "colour.png")
+    cv2.imwrite(path, bgr)
+    j = oc.ColorfulImage2D.load(path)
+    t = ot.ColorfulImage2D.load(path)
+    for c, plane in zip("bgr", range(3)):
+        np.testing.assert_array_equal(getattr(t, c), getattr(j, c))
+        np.testing.assert_array_equal(getattr(t, c), bgr[..., plane])
+        assert getattr(t, c).dtype == np.float32
+    assert (t.height, t.width) == (j.height, j.width) == (23, 31)
+    with pytest.raises(IOError):
+        ot.ColorfulImage2D.load(str(tmp_path / "missing.png"))

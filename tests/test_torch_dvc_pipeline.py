@@ -63,7 +63,8 @@ def _queue(rng, n, shape, p_fn=None):
     return xs, ys, zs, p0
 
 
-def _run_ops(ref, tar, xs, ys, zs, p0, zncc0=None, *, r=8, margin=8):
+def _run_ops(ref, tar, xs, ys, zs, p0, zncc0=None, *, r=8, margin=8,
+             eval_mode="lattice"):
     """icgn3d1 of both packages on the same inputs; numpy outputs and the
     port's branch counts."""
     n = xs.shape[0]
@@ -73,14 +74,15 @@ def _run_ops(ref, tar, xs, ys, zs, p0, zncc0=None, *, r=8, margin=8):
         *gj, jnp.asarray(ref), jbs.tricubic_prepare(jnp.asarray(tar)),
         *map(jnp.asarray, (xs, ys, zs, p0, zncc0)), jnp.float32(0.001),
         jnp.float32(10), rx=r, ry=r, rz=r, window_margin=margin,
-        eval_mode="lattice")
+        eval_mode=eval_mode)
     tref = torch.from_numpy(ref)
     stats = collections.Counter()
     out_t = ticgn.icgn3d1(
         *(getattr(tgrad, f"gradient_{a}_3d")(tref) for a in "xyz"), tref,
         tbs.tricubic_prepare(torch.from_numpy(tar)),
         *(torch.from_numpy(a.copy()) for a in (xs, ys, zs, p0, zncc0)),
-        0.001, 10.0, rx=r, ry=r, rz=r, window_margin=margin, stats=stats)
+        0.001, 10.0, rx=r, ry=r, rz=r, window_margin=margin,
+        eval_mode=eval_mode, stats=stats)
     return ([np.asarray(a) for a in out_j], [a.numpy() for a in out_t],
             dict(stats))
 
@@ -121,6 +123,44 @@ def test_icgn3d1_matches_jax(margin):
         assert "lattice" not in stats and "fallback" not in stats
     else:
         assert stats["lattice"] == stats["iter"] and "fallback" not in stats
+
+
+@pytest.mark.parametrize("case", ["strain_1pct", "strain_25pct",
+                                  "window_exit"])
+def test_icgn3d1_tile_matches_jax(case):
+    """``eval_mode="tile"`` against the JAX package's tile path: codes
+    equal, u/v/w within 2e-5 voxel (as ICGN3D1's other 3D gates).  The
+    port's tile values are the global eval's: every POI the tile path does
+    not fail -3 equals ``window_margin=None`` bit for bit, and the POIs it
+    fails -3 (window exits) iterate on without it."""
+    margin, e, zncc0 = 8, 0.01, None
+    if case == "strain_25pct":
+        e = 0.25
+    ref, tar, rng = _pair(e, seed=1 if case == "window_exit" else 0)
+
+    def seed(p0, zs):
+        if case == "strain_25pct":
+            p0[:, 8] = 0.4 - e * (zs - 24)
+            p0[:, 11] = -e
+        if case == "window_exit":
+            p0[:4, 0] = 0.6 - 1.3
+
+    queue = _queue(rng, 7 if case != "window_exit" else 9, ref.shape, seed)
+    if case == "window_exit":
+        margin = 2
+    oj, ot_, stats = _run_ops(ref, tar, *queue, margin=margin,
+                              eval_mode="tile")
+    _assert_ops_equal(oj, ot_, tol=2e-5)
+    assert "lattice" not in stats and "fallback" not in stats
+    _, glob, _ = _run_ops(ref, tar, *queue, margin=None)
+    held = ot_[4] != -3
+    assert held.any()
+    np.testing.assert_array_equal(ot_[0][held], glob[0][held])
+    np.testing.assert_array_equal(ot_[4][held], glob[4][held])
+    if case == "window_exit":
+        assert (ot_[4][:4] == -3).all() and (glob[4][:4] > 0.9).all()
+    else:
+        assert held.all()
 
 
 def test_icgn3d1_exact_fallback_every_iteration():
@@ -278,13 +318,17 @@ def test_icgn3d1_chunked_matches_whole(speckle_pair_3d):
 
 
 def test_icgn3d1_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ot.ICGN3D1(8, 8, 8, eval_mode="tile", device=CPU)
+    """Every option of the JAX package's icgn3d1 and ICGN3D1 is ported:
+    ``eval_mode="tile"`` (test_icgn3d1_tile_matches_jax) and the z guards
+    (tests/test_torch_parallel.py) run; a module used before ``prepare``
+    or on a 2D table still raises."""
+    m = ot.ICGN3D1(8, 8, 8, eval_mode="tile", device=CPU)
+    assert m.eval_mode == "tile"
     args = [torch.zeros((20, 20, 20))] * 5 + [torch.zeros(1)] * 3 + [
         torch.zeros((1, 12)), torch.zeros(1), 0.001, 10.0]
-    with pytest.raises(NotImplementedError):
-        ticgn.icgn3d1(*args, rx=4, ry=4, rz=4, eval_mode="tile")
-    # the z guards are ported (tests/test_torch_parallel.py): they run
+    out = ticgn.icgn3d1(*args, rx=4, ry=4, rz=4, window_margin=2,
+                        eval_mode="tile")
+    assert out[4].shape == (1,)
     out = ticgn.icgn3d1(*args, rx=4, ry=4, rz=4, z_guard_lo=0.0,
                         z_guard_hi=10.0)
     assert out[4].shape == (1,)

@@ -7,10 +7,9 @@ package's on the CPU, and ``speckle_quality.assess``.
   and ``strain`` from one result table: codes equal, u/v/w within 2e-5
   voxel, strain within 1e-5, the same stage names in ``*_time.csv``, the
   ``.bin`` matrices' headers equal and their records within the same
-  gates.  For ``sift_icgn1`` the JAX example's SIFT3D stage (which takes
-  about a minute here) gives the port's matches, which
-  tests/test_torch_sift3d_pipeline.py holds equal to the JAX device path's
-  on this pair; FeatureAffine3D gets the JAX package's draws.
+  gates.  ``sift_icgn1`` runs both examples end to end, SIFT3D's host
+  path (the default of both packages) included, whose matches must be
+  equal; FeatureAffine3D gets the JAX package's draws.
 * ``fit_parallax`` equal to the JAX example's.
 * EpipolarSearch with a non-zero bilinear ``set_parallax``: codes and
   iteration counts equal, u/v within 1e-5 px.
@@ -179,6 +178,22 @@ class _Matches:
         pass
 
 
+@contextlib.contextmanager
+def _jax_sift_matches():
+    """Yields [ref_kp, tar_kp], filled with the matches of the JAX
+    package's SIFT3D modules computed inside the block."""
+    got = []
+    compute = oc.SIFT3D.compute
+
+    def spy(self):
+        compute(self)
+        got[:] = [self.ref_matched_kp, self.tar_matched_kp]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(oc.SIFT3D, "compute", spy)
+        yield got
+
+
 def test_dvc_sift_icgn1_matches_jax(jdvc, tmp_path):
     import jax
 
@@ -190,10 +205,14 @@ def test_dvc_sift_icgn1_matches_jax(jdvc, tmp_path):
                        device=CPU, ransac_draws=torch.from_numpy(draws),
                        stats=stats)
     kp = stats["sift_matches"]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(oc, "SIFT3D", lambda *a, **k: _Matches(*kp))
+    with _jax_sift_matches() as jkp:
         want, jt = jdvc.run("sift_icgn1", ref, tar, csv,
                             str(tmp_path / "jax"))
+    for a, b in zip(kp, jkp):
+        np.testing.assert_array_equal(a, b)
+    assert len(kp[0]) >= 8
+    assert {st["route"] for st in stats["sift3d_layers"]
+            if "route" in st} >= {"kernel 4"}
     j = {f: np.asarray(getattr(want, f)) for f in ot.POITable3D.FIELDS}
     t = ot.table_to_numpy(got)
     _assert_3d_tables(t, j)

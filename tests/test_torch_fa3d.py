@@ -128,7 +128,8 @@ def test_feature_affine_3d_exact():
 
 def test_feature_affine_3d_codes_and_draws():
     """-1 far from every keypoint, draws independent of the device, chunked
-    computes equal to one chunk, the device neighbour search not ported."""
+    computes equal to one chunk, and the device neighbour search
+    (tests/test_torch_fa_device.py) equal to the host one here."""
     ref, tar, _, _ = _affine_kp(noise=0.1, outliers=30)
     xyz = np.array([[100.0, 100.0, 100.0], [120.0, 90.0, 60.0],
                     [900.0, 900.0, 900.0]], np.float32)
@@ -145,6 +146,9 @@ def test_feature_affine_3d_codes_and_draws():
     assert list(z) == [0.0, 0.0, -1.0]
     for f in ("p", "r"):
         assert torch.equal(getattr(outs[0], f), getattr(outs[1], f))
-    with pytest.raises(NotImplementedError):
-        ot.FeatureAffine3D(16, 16, 16, neighbor_backend="device",
-                           device="cpu")
+    fa = ot.FeatureAffine3D(16, 16, 16, seed=7, neighbor_backend="device",
+                            device="cpu")
+    fa.set_keypoint_pair(ref, tar)
+    dev = fa.compute(ot.new_table_3d(*xyz.T, device="cpu"))
+    for f in ("p", "r"):
+        assert torch.equal(getattr(dev, f), getattr(outs[0], f))

@@ -176,3 +176,36 @@ def test_nr_matches_jax(queue, margin):
     assert tm.stats["iter_full"] > 0
     with pytest.raises(NotImplementedError):
         tm.set_self_adaptive(True)
+
+
+@pytest.mark.parametrize("kind", ["icgn1", "icgn2", "iclm1", "nr1"])
+def test_global_eval_mode_matches_jax(queue, kind):
+    """An ``eval_mode`` other than "lattice" takes the global LUT in both
+    packages (the JAX package's ``icgn.py:421-430``), whatever the
+    margin: no windowed branch runs, and the tables agree with each
+    refiner's gate above."""
+    ref, tar, t = queue
+    jcls, tcls = {"icgn1": (oc.ICGN2D1, ot.ICGN2D1),
+                  "icgn2": (oc.ICGN2D2, ot.ICGN2D2),
+                  "iclm1": (oc.ICLM2D1, ot.ICLM2D1),
+                  "nr1": (oc.NR2D1, ot.NR2D1)}[kind]
+    jm = jcls(R, R, 0.001, 10)
+    tm = tcls(R, R, 0.001, 10, device=CPU)
+    for m in (jm, tm):
+        m.window_margin = 8
+        m.eval_mode = "global"
+        m.set_images(ref, tar)
+        m.prepare()
+    jt, tt = _tables(t)
+    outj = jm.compute(jt)
+    j = {f: np.asarray(getattr(outj, f)) for f in ("p", "r", "sr")}
+    got = ot.table_to_numpy(tm.compute(tt))
+    if kind == "nr1":
+        _assert_nr_equal(j, got)
+    elif kind == "icgn2":
+        _assert_close_12(j, got)
+    else:
+        _assert_icgn_equal(j, got)
+    assert not {"full", "correct", "exact", "exact_all"} & set(tm.stats)
+    assert tm.stats["iter_full"] > 0
+    assert tcls(R, R, eval_mode="global", device=CPU)._margin() is None

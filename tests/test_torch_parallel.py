@@ -46,6 +46,9 @@ CPU = "cpu"
 WORLDS = (1, 2, 4)
 R = 3  # the subset radius of tests/test_halo.py's cases
 CASES = ("matches_single", "edge_blocks", "global_guard", "lattice_fallback")
+# the cases and mesh sizes ShardedICGN3D1(eval_mode="tile") runs at
+TILE_CASES = ("matches_single", "edge_blocks")
+TILE_WORLDS = (1, 2)
 CONV = {"global_guard": 0.01}
 HALO_TEST = 5  # the slab depth of the halo-exchange comparison
 TIMEOUT_S = 240
@@ -162,6 +165,15 @@ def worker(world, rank, port, inputs_path, out_dir):
             one = single.compute(_table(inputs, name))
             out[f"{name}/single_p"] = one.p.numpy()
             out[f"{name}/single_r"] = one.r.numpy()
+    if world in TILE_WORLDS:
+        for name in TILE_CASES:
+            m = thalo.ShardedICGN3D1(R, R, R, CONV.get(name, 0.001), 10,
+                                     eval_mode="tile")
+            m.set_images(ref, tar)
+            got = m.compute(_table(inputs, name), mesh)
+            out[f"tile/{name}/p"] = got.p.numpy()
+            out[f"tile/{name}/r"] = got.r.numpy()
+            out[f"tile/{name}/lattice"] = m.stats["lattice"]
     vol = torch.from_numpy(halo_volume())
     bz = vol.shape[0] // world
     out["halo_ext"] = thalo.halo_exchange_z(
@@ -250,6 +262,14 @@ def runs(tmp_path_factory):
                 m.set_images(ref, tar)
                 t = m.compute(_jax_table(oc, jnp, inputs, name), mesh)
                 want[w, name] = (np.asarray(t.p), np.asarray(t.r))
+            if w in TILE_WORLDS:
+                for name in TILE_CASES:
+                    m = jhalo.ShardedICGN3D1(R, R, R, CONV.get(name, 0.001),
+                                             10, eval_mode="tile")
+                    m.set_images(ref, tar)
+                    t = m.compute(_jax_table(oc, jnp, inputs, name), mesh)
+                    want[w, "tile", name] = (np.asarray(t.p),
+                                             np.asarray(t.r))
         fn = jax.shard_map(
             lambda b: jhalo.halo_exchange_z(b, HALO_TEST, "z")[None],
             mesh=jmesh.make_mesh(4, axis="z"),
@@ -334,6 +354,27 @@ def test_sharded_icgn3d1_matches_jax(runs, world, name):
         assert zncc[0] == -3.0 and zncc[1] > 0
     if name == "lattice_fallback":
         assert sum(rk[f"{name}/fallback"] for rk in ranks) > 0
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+@pytest.mark.parametrize("world", TILE_WORLDS)
+def test_sharded_tile_matches_jax(runs, world, name):
+    """ShardedICGN3D1(eval_mode="tile") against the JAX package's tile
+    path at the same mesh size, with the lattice cases' gate: codes,
+    u0/v0/w0 and iteration counts equal, u/v/w within 2e-5 voxel at the
+    median and 6e-5 at the worst; no lattice launch; every rank holds the
+    same table."""
+    p_want, r_want = runs["want"][world, "tile", name]
+    ranks = [runs["got"][world, k] for k in range(world)]
+    p, r = ranks[0][f"tile/{name}/p"], ranks[0][f"tile/{name}/r"]
+    _codes_equal(r, r_want)
+    d = _duvw(p, p_want)
+    assert np.median(d) <= 2e-5 and d.max() <= 6e-5, (np.median(d), d.max())
+    np.testing.assert_array_equal(r[:, [0, 1, 2, 4]], r_want[:, [0, 1, 2, 4]])
+    for other in ranks[1:]:
+        np.testing.assert_array_equal(other[f"tile/{name}/p"], p)
+    assert all(int(rk[f"tile/{name}/lattice"]) == 0 for rk in ranks)
+    assert (r[:, 3] > 0).mean() > 0.8
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -66,6 +66,47 @@ def test_hist_plain_vs_jax(scale, units):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * m)
 
 
+@pytest.mark.parametrize("scale,units", [(0.5, (1.0, 1.0, 1.0)),
+                                         (1.0, (1.0, 1.0, 2.0))])
+def test_hist_plain_bf16_vs_jax(scale, units):
+    """``hist_bf16``: both factors of every product rounded to bfloat16, as
+    the Pallas kernel's bf16 operands, and away from the float32
+    histogram.  XLA contracts the kernel's rotations into fused
+    multiply-adds, so a factor can differ from the port's by one float32
+    ulp, and where that ulp straddles a bfloat16 rounding boundary the
+    product moves by one bfloat16 step (2^-8 relative): all but 0.1% of
+    the entries within 1e-5 x max|S|, every one within 2^-7 relative."""
+    rng = np.random.default_rng(int(10 * scale) + 1)
+    shape = (30, 34, 38)
+    vol = _t(np.float32(128 + 40 * rng.standard_normal(shape)))
+    crop = tops._sphere_crop(64, scale, units)
+    k = 6
+    xi = _t(np.int32([19, 1, 36, 19, 10, 30]))
+    yi = _t(np.int32([17, 17, 2, 33, 5, 20]))
+    zi = _t(np.int32([15, 15, 15, 1, 29, 0]))
+    rot = _random_rotations(rng, k).reshape(k, 9)
+    starts, tab = desc3d.prepare_tables(shape, xi, yi, zi, crop=crop,
+                                        scale=scale, unit_xyz=units)
+    args = [a.numpy() for a in desc3d.hist_inputs(vol, starts, tab,
+                                                  crop=crop, unit_xyz=units)]
+    want = np.asarray(jpd.descriptor_hist(*map(jnp.asarray, args),
+                                          jnp.asarray(rot), scale=scale,
+                                          hist_bf16=True, interpret=True))
+    got = desc3d.hist_from_tables(*map(_t, args), _t(rot), scale=scale,
+                                  hist_bf16=True).numpy()
+    f32 = desc3d.hist_from_tables(*map(_t, args), _t(rot),
+                                  scale=scale).numpy()
+    m = np.abs(want).max()
+    assert (np.abs(got - want) > 1e-5 * m).mean() < 1e-3
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-5 * m)
+    assert np.abs(f32 - want).max() > 1e-4 * m
+    # the wrapper's plain route takes the flag
+    plain = desc3d.descriptor_hist(vol, starts, tab, _t(rot), crop=crop,
+                                   scale=scale, unit_xyz=units,
+                                   hist_bf16=True)
+    assert torch.equal(plain, _t(got))
+
+
 def test_fused_descriptor_vs_jax():
     vol, xi, yi, zi, rot = _descriptor_inputs()
     scale, units, r_desc = 1.0, (1.0, 1.0, 1.0), 16

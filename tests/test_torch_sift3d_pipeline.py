@@ -47,7 +47,7 @@ def matched(pair):
     j.set_images(ref, tar)
     j.compute()
     before = desc3d.descriptor_hist.launches
-    t = ot.SIFT3D(device="cpu")
+    t = ot.SIFT3D(pyramid_backend="device", device="cpu")
     t.set_images(ref, tar)
     t.compute()
     assert desc3d.descriptor_hist.launches == before  # plain on the CPU

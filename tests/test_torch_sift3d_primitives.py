@@ -245,6 +245,10 @@ def test_construct_descriptor_close(use_crop, monkeypatch):
 
 
 def test_construct_descriptor_options_not_ported():
+    """``parts`` (a benchmark knob) still raises; ``hist_bf16`` is ported:
+    the bf16-operand histogram against the JAX package's, within 1e-6 as
+    the float32 one (the operands round alike, their products are exact,
+    the sums run in another order), and away from the float32 one."""
     vol, xi, yi, zi, rot = _descriptor_inputs()
     win, x0, y0, z0 = tops.gather_windows_3d(_t(vol), *map(_t, (xi, yi, zi)),
                                              4)
@@ -252,8 +256,21 @@ def test_construct_descriptor_options_not_ported():
             1.0, (1.0, 1.0, 1.0), 0.03)
     with pytest.raises(NotImplementedError):
         tops.construct_descriptor(*args, parts="nobary")
-    with pytest.raises(NotImplementedError):
-        tops.construct_descriptor(*args, hist_bf16=True)
+    scale, units, trunc, r_desc = 1.0, (1.0, 1.0, 1.0), 0.2 * 128 / 768, 16
+    dims = (vol.shape[2], vol.shape[1], vol.shape[0])
+    win, x0, y0, z0 = jops._gather_windows_3d(
+        jnp.asarray(vol), *map(jnp.asarray, (xi, yi, zi)), r_desc)
+    jargs = (win, x0, y0, z0, *map(jnp.asarray, (xi, yi, zi)),
+             jnp.asarray(np.int32(dims)), jnp.asarray(rot),
+             jnp.float32(scale), jnp.asarray(np.float32(units)),
+             jnp.float32(trunc))
+    want = np.asarray(jops.construct_descriptor(*jargs, hist_bf16=True))
+    targs = (*(_t(np.asarray(a)) for a in (win, x0, y0, z0)),
+             *map(_t, (xi, yi, zi)), dims, _t(rot), scale, units, trunc)
+    got = tops.construct_descriptor(*targs, hist_bf16=True).numpy()
+    f32 = tops.construct_descriptor(*targs).numpy()
+    assert np.abs(got - want).max() < 1e-6
+    assert np.abs(f32 - want).max() > 1e-5
 
 
 def test_match_top2_and_eliminations_equal():
@@ -331,7 +348,14 @@ def test_plan_layers_equal():
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tmodel.SIFT3D(pyramid_backend="host", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmodel.SIFT3D(hist_bf16=True, device="cpu")
+    """The host path and the bf16 histograms are ported
+    (tests/test_torch_sift3d_host.py, tests/test_torch_sift3d_kernel.py):
+    the constructor's defaults follow the JAX package's, and it keeps the
+    options it is given."""
+    j, t = jmodel.SIFT3D(), tmodel.SIFT3D(device="cpu")
+    for name in ("pyramid_backend", "match_mode", "hist_bf16",
+                 "kp_chunk_budget"):
+        assert getattr(t, name) == getattr(j, name)
+    assert t.pyramid_backend == "host"
+    m = tmodel.SIFT3D(pyramid_backend="device", hist_bf16=True, device="cpu")
+    assert m.pyramid_backend == "device" and m.hist_bf16

@@ -204,7 +204,8 @@ def test_match_device_matches_jax(jax_octaves):
 def test_sift2d_module_matches_and_retain_best():
     """SIFT2D on a translated pair: the matched keypoints move by the
     shift; the retain-best path keeps the n strongest responses as the
-    JAX package's ``_retain_best``; backend="opencv" is not ported."""
+    JAX package's ``_retain_best``; backend="opencv" is a module of its
+    own (test_sift2d_opencv_matches_jax)."""
     img = _speckle((88, 96), seed=8)
     tar = np.clip(np.round(ndshift(img, (1.4, -2.3), order=3)), 0, 255)
     s = ot.SIFT2D(device="cpu")
@@ -225,8 +226,33 @@ def test_sift2d_module_matches_and_retain_best():
     s.sift_config.n_features = 60
     s.compute()
     assert 0 < len(s.ref_matched_kp) <= 60
-    with pytest.raises(NotImplementedError):
-        ot.SIFT2D(backend="opencv", device="cpu")
+    cv = ot.SIFT2D(backend="opencv", device="cpu")
+    assert cv.backend == "opencv" and s.backend == "device"
+
+
+def test_sift2d_opencv_matches_jax():
+    """backend="opencv": OpenCV's detector, then each package's exact
+    device match; equal matched keypoints.  Without cv2 the port raises
+    ImportError naming it."""
+    img = _speckle((88, 96), seed=8)
+    tar = np.clip(np.round(ndshift(img, (1.4, -2.3), order=3)), 0, 255)
+    t = ot.SIFT2D(backend="opencv", device="cpu")
+    t.set_images(img, tar)
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="cv2"):
+            t.compute()
+        pytest.skip("cv2 is not installed")
+    j = jsift_mod.SIFT2D(backend="opencv")
+    j.set_images(img, tar)
+    j.compute()
+    t.compute()
+    np.testing.assert_array_equal(t.ref_matched_kp, j.ref_matched_kp)
+    np.testing.assert_array_equal(t.tar_matched_kp, j.tar_matched_kp)
+    assert len(t.ref_matched_kp) > 20
+    d = np.median(t.tar_matched_kp - t.ref_matched_kp, 0)
+    np.testing.assert_allclose(d, (-2.3, 1.4), atol=0.05)
 
 
 # --- FeatureAffine2D --------------------------------------------------------
