@@ -12,13 +12,19 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    four CUDA kernels from ``opencorr_tpu_torch/csrc`` (one ``nvcc`` each,
    all started together).
 2. Each kernel against its plain PyTorch version on the card at the main
-   paths' shapes: the window gather bit-exact at 30k x 32x32, 33x33 and
-   40x40, 940 x 48x48 and the epipolar candidates at 41x41 of the stereo
-   path (16,379 windows) and of the reconstruction example (16,380
-   windows: 2,340 POIs x 7 candidates), every chunk's, from the search's
-   own chunk rule, with corners that need clamping; the 2D lattice eval at D=2
-   (30k and 10k POIs) and D=6 (940 and 312 POIs) within 1e-6 x max|eblk|;
-   the
+   paths' shapes (``kernel12_cases`` for kernels 1 and 2): the window
+   gather bit-exact at 30k x 32x32, 33x33 and 40x40, 940 x 48x48, the
+   epipolar candidates at 41x41 of the stereo path (16,379 windows) and of
+   the reconstruction example (16,380 windows: 2,340 POIs x 7 candidates),
+   every chunk's, from the search's own chunk rule, and the stereo path's
+   IC-GN at 10,000 x 33x33 and 40x40 and 312 x 48x48, with corners that
+   need clamping; the 2D lattice eval at D=2 (30k, 10k and the stereo
+   path's compacted 2,500 POIs) and D=6 (940 and 312 POIs) within 1e-6 x
+   max|eblk|; kernels 1 and 2 also through their C entry points, whose
+   device time a launch (launches enqueued behind a sleep kernel, so that
+   none waits on the host: ``launch_timing``) is each record's ``ms``,
+   beside the wrapper's CUDA-event time (``wrapper_ms``) and the host us a
+   call of each; the
    3D lattice eval at D=1 at one ICGN3D1 chunk of the DVC path (441 x
    61^3) and of the SIFT path (2,795 x 33^3), on offsets from a smooth
    affine warp per POI (as ICGN3D1 makes them) and on random ones, equal
@@ -31,8 +37,8 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    counts on the octave-0, -1 and -2 layers whose crop fits, 4,689 to
    13,808 keypoints at one block a keypoint, 164 to 564 in z-bands) on the
    volume blurred at the layer's sigma and voxel pitch, every keypoint
-   within 1e-5 x max|S| (float atomics sum in a varying order).  Then kernels 1
-   and 2 ``==`` their plain versions at every shape of phase 12's planar
+   within 1e-5 x max|S| (float atomics sum in a varying order).  Kernels 1
+   and 2 also ``==`` their plain versions at every shape of phase 12's planar
    suite that the lists above lack, derived from the port's own chunk,
    correction-cap and compaction rules (``dic2d_launch_shapes``): the
    gather at 42,025 x 25x25 and 32x32, 1,313 x 40x40 and 937 x 48x48, the
@@ -44,8 +50,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    900x280 8-bit speckle pair whose target is the reference under a known
    sub-pixel translation plus 0.5% strain, then ``save_table_2d``.  Launch
    counters are zeroed just before the timed run (after one warm-up run)
-   and read just after it.  Checks convergence and recovered displacement
-   and strain against the imposed field.
+   and read just after it, kernels 1 and 2 counted per launch shape, their
+   device time from phase 2's (``device_sum``).  Checks convergence and
+   recovered displacement and strain against the imposed field.
 4. The same modules on ``cuda`` and on ``cpu`` (the plain versions) on a
    2,000-POI subset, with every 8th seed displaced by 3 px so that the
    IC-GN windowed eval takes its D=6 correction branch: FFTCC u/v equal,
@@ -96,11 +103,11 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    grid.  ``examples/stereo_3d_dic_epipolar_sift.run`` (EpipolarSearch ->
    ICGN2D2, SIFT2D -> FeatureAffine2D -> ICGN2D1, the cross match, the
    triangulation, ``save_table_2ds``) and ``examples/stereo_strain.run``,
-   after a warm-up on the crop; kernels 1 and 2 counted and timed per
-   launch, summed per launch shape (the epipolar gathers must be the
-   shapes phase 2 checked).  Prints the epipolar reach, every SIFT2D
-   octave's counts beside
-   its caps, the matches and FeatureAffine2D's codes; checks each pair's
+   after a warm-up on the crop; kernels 1 and 2 counted per launch shape,
+   their device time from phase 2's (every launch shape must be one phase
+   2 timed; the epipolar gathers the shape phase 2 checked).  Prints the
+   epipolar reach, every SIFT2D octave's counts beside its caps, the
+   matches and FeatureAffine2D's codes; checks each pair's
    converged fraction (>= 0.9), each view's mean position error (< 0.02
    px) and the mean 3D displacement error against the bound from moving
    every matched coordinate by 0.02 px.
@@ -117,7 +124,8 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    self-adaptive -> ICGN2D1(30) self-adaptive -> Strain(25, 10)) on a
    3751x501 pair stretched 0.5% along x; strain (Strain(20, 5)) from the
    fftcc_icgn1 table just written.  Counters zeroed after the warm-up and
-   read after the suite, kernels 1 and 2 timed per launch per workload;
+   read after the suite, kernels 1 and 2 counted per launch shape per
+   workload, their device time from phase 2's;
    prints each workload's stage times, table-writer times, branch counts,
    SIFT2D octave counts beside their caps, r_max and the writer.  Checks:
    the native table codec loaded and wrote every table; converged >= 0.9
@@ -147,7 +155,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    plane through these cameras leaves 74% of the truths out of reach),
    68,800 POIs, after a warm-up on a 300x400 crop.  Prints the fitted
    parallax, every truth's epipolar reach from the fitted estimate (and
-   how many lie past 6 px), the SIFT2D octave counts and the stage times.
+   how many lie past 6 px), the SIFT2D octave counts and the stage times;
+   kernel 1's launches counted per shape, their device time from phase
+   2's.
    Checks ZNCC > 0.9 on at least 0.9 of POIs, mean |view-2 position -
    truth| < 0.02 px, the mean 3D error under the bound from moving each
    matched coordinate by 0.02 px, and that every kernel-1 launch shape is
@@ -186,7 +196,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    the tile eval on an NCCL group of one against it (codes equal, u/v/w
    within 1e-5 voxel), no kernel-3 launch, and 64 POIs at r=16 on ``cuda``
    and on ``cpu`` (codes equal, u/v/w within 1e-3 voxel).
-17. JSON lines: per-kernel records, the stage times, and last
+17. JSON lines: per-kernel records (each kernel's time per path,
+   ``path_ms``: kernels 1 and 2 launches x phase 2's device ms per launch
+   shape, kernels 3 and 4 CUDA events a launch), the stage times, and last
    ``{"ok": true, "device": {...}}``.  The script refuses to start when
    ``OPENCORR_SIFT2D`` is set.
 """
@@ -343,6 +355,43 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def launch_timing(torch, call, reps: int, warm: int = 2):
+    """Device ms and host us a call of ``call``, over ``reps`` calls
+    enqueued while the stream waits behind a sleep kernel: the time between
+    two events around them on the device, so that no launch waits on the
+    host, and the host's time to enqueue them.  Fails unless the sleep was
+    still running when the last call was enqueued."""
+    for _ in range(warm):
+        call()
+    torch.cuda.synchronize()
+    cycles = 1 << 21
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        host_s = time.perf_counter() - t0
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps, host_s / reps * 1e6
+        cycles <<= 2
+    raise AssertionError("the host did not enqueue ahead of the device")
+
+
+def entry_call(torch, name, bind, args):
+    """One launch of the package's build of kernel ``name`` through its C
+    entry point, ``bind`` typing it, on ``args``; raises on a CUDA error."""
+    from opencorr_tpu_torch.ops import _kernels
+
+    fn = bind(_kernels.load(name))
+    return lambda: _kernels.check(fn(*args), name)
+
+
 def speckle_pair(seed: int):
     """900x280 uint8 pair: the target is the reference under a sub-pixel
     translation plus isotropic 0.5% strain about the image center."""
@@ -387,16 +436,17 @@ def event_ms(wrapper):
         rec["ms_sum"] += t
     return dict(launches=len(ms), ms_sum=sum(ms),
                 ms_per_launch=sum(ms) / len(ms) if ms else None,
-                by_shape=by_shape)
+                by_shape=by_shape, timing="events")
 
 
 def merge_event_ms(recs):
-    """``event_ms`` records of several runs summed, per kernel."""
+    """``event_ms`` or ``device_sum`` records of several runs summed, per
+    kernel."""
     out = {}
     for rec in recs:
         for name, ev in rec.items():
             m = out.setdefault(name, dict(launches=0, ms_sum=0.0,
-                                          by_shape={}))
+                                          by_shape={}, timing=ev["timing"]))
             m["launches"] += ev["launches"]
             m["ms_sum"] += ev["ms_sum"]
             for s, v in ev["by_shape"].items():
@@ -404,6 +454,26 @@ def merge_event_ms(recs):
                 b["launches"] += v["launches"]
                 b["ms_sum"] += v["ms_sum"]
     return out
+
+
+def device_sum(wrapper, device_ms):
+    """Launch count and device milliseconds of kernel 1's or 2's launches
+    since ``wrapper.shapes`` was set, in all and per launch shape:
+    launches x the device ms a launch that phase 2 measured at that shape
+    (``device_ms``, by the shape as the wrapper records it); fails on a
+    shape that phase 2 did not time.  Stops the counting."""
+    shapes, wrapper.shapes = wrapper.shapes, None
+    by_shape = {}
+    for shape, k in shapes.items():
+        key = "x".join(map(str, shape))
+        check(key in device_ms, f"{wrapper.__name__} launched at {key}, "
+              "which phase 2 did not time")
+        by_shape[key] = dict(launches=k, ms_per_launch=device_ms[key],
+                             ms_sum=k * device_ms[key])
+    n = sum(shapes.values())
+    ms = sum(v["ms_sum"] for v in by_shape.values())
+    return dict(launches=n, ms_sum=ms, ms_per_launch=ms / n if n else None,
+                by_shape=by_shape, timing="device")
 
 
 def epipolar_windows(ot):
@@ -432,20 +502,63 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def gather_case(torch, src, n, sh, sw, rng, reps, **tags):
-    """Kernel 1 ``==`` its plain version and ``unfold`` + index on ``n``
-    random corners of ``src``, one in ten needing a clamp; timed."""
-    from opencorr_tpu_torch.ops import gather2d
-
-    dev = src.device
+def gather_corners(torch, src, n, sh, sw, rng):
+    """``n`` random window corners in ``src`` for kernel 1, one in ten
+    needing a clamp (up to a window past either end), int32 on ``src``'s
+    device; and how many need one."""
     h, w = src.shape
     y0 = rng.integers(0, h - sh + 1, n)
     x0 = rng.integers(0, w - sw + 1, n)
-    bad = rng.uniform(size=n) < 0.1  # corners that need clamping
+    bad = rng.uniform(size=n) < 0.1
     y0[bad] = rng.integers(-sh, h + sh, bad.sum())
     x0[bad] = rng.integers(-sw, w + sw, bad.sum())
-    y0 = torch.from_numpy(y0.astype(np.int32)).to(dev)
-    x0 = torch.from_numpy(x0.astype(np.int32)).to(dev)
+    return (*(torch.from_numpy(a.astype(np.int32)).to(src.device)
+              for a in (y0, x0)), int(bad.sum()))
+
+
+def lattice2d_inputs(torch, dev, n, s, d, rng, kind="random"):
+    """eblk and the four sample arrays of kernel 2 for ``n`` POIs at side
+    ``s`` and wobble ``d``: "random", uniform offsets in [0, 2D] (5% out
+    of range: -1, 2D+1, -9 or 40) and fractions; "path", per POI a
+    translation in [0, 1)^2 and a displacement gradient of N(0, 0.003) per
+    entry, the samples' local coordinates split into floor offsets (D at
+    rest) and fractions, as IC-GN splits them."""
+    wl = 4 + 2 * d
+    eblk = np.round(rng.uniform(0, 255, (n, s + wl - 1, s + wl - 1)))
+    if kind == "random":
+        offs = [rng.integers(0, 2 * d + 1, (n, s, s)) for _ in range(2)]
+        for a in offs:
+            bad = rng.uniform(size=a.shape) < 0.05
+            a[bad] = rng.choice([-1, 2 * d + 1, -9, 40], bad.sum())
+        fracs = [rng.uniform(0, 1, (n, s, s)) for _ in range(2)]
+    else:
+        t = rng.uniform(0, 1, (n, 2))
+        grad = 0.003 * rng.standard_normal((n, 2, 2))
+        q = np.arange(s) - (s - 1) / 2
+        qs = (q[:, None], q[None, :])
+        offs, fracs = [], []
+        for a in range(2):  # y, x
+            loc = d + t[:, a, None, None] + sum(
+                grad[:, a, b, None, None] * qs[b] for b in range(2))
+            offs.append(np.floor(loc))
+            fracs.append(loc - np.floor(loc))
+    return (torch.from_numpy(eblk.astype(np.float32)).to(dev),
+            *(torch.from_numpy(a.astype(np.int32)).to(dev) for a in offs),
+            *(torch.from_numpy(a.astype(np.float32)).to(dev)
+              for a in fracs))
+
+
+def gather_case(torch, src, n, sh, sw, rng, reps, **tags):
+    """Kernel 1 ``==`` its plain version and ``unfold`` + index on ``n``
+    random corners of ``src``, one in ten needing a clamp, through the
+    wrapper and through the C entry point; timed: ``ms`` the device time a
+    launch of the C entry point (``launch_timing``), ``wrapper_ms`` CUDA
+    events around back-to-back wrapper calls (host time included where it
+    is longer), and the host us a call of each."""
+    from opencorr_tpu_torch.ops import gather2d
+
+    h, w = src.shape
+    y0, x0, clamped = gather_corners(torch, src, n, sh, sw, rng)
     got = gather2d.gather_windows_2d(src, y0, x0, sh=sh, sw=sw)
     want = gather2d.gather_windows_2d_plain(src, y0, x0, sh=sh, sw=sw)
     torch.cuda.synchronize()
@@ -457,16 +570,24 @@ def gather_case(torch, src, n, sh, sw, rng, reps, **tags):
         return src.unfold(0, sh, 1).unfold(1, sw, 1)[yc, xc]
 
     check(torch.equal(library(), want), "gather library call differs")
+    out = torch.full_like(want, float("nan"))
+    entry = entry_call(torch, "gather2d", gather2d.bind,
+                       gather2d.c_args(src, y0, x0, out, sh, sw))
+    ms, entry_us = launch_timing(torch, entry, max(reps, 50))
+    check(torch.equal(out, want), f"gather {n}x{sh}x{sw} through the C "
+          "entry point not bit-exact")
+    wrapped = lambda: gather2d.gather_windows_2d(src, y0, x0, sh=sh, sw=sw)
+    _, wrapper_us = launch_timing(torch, wrapped, max(reps, 50))
     nbytes = (h * w + n * sh * sw + 2 * n) * 4
     rec = dict(
-        shape=[n, sh, sw], **tags, max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d(
-            src, y0, x0, sh=sh, sw=sw), reps),
+        shape=[n, sh, sw], **tags, max_abs_err=0.0, ms=ms,
+        wrapper_ms=cuda_ms(torch, wrapped, reps), entry_host_us=entry_us,
+        wrapper_host_us=wrapper_us,
         plain_ms=cuda_ms(torch, lambda: gather2d.gather_windows_2d_plain(
             src, y0, x0, sh=sh, sw=sw), reps),
         library_ms=cuda_ms(torch, library, reps),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes=nbytes, clamped=int(bad.sum()))
+        bytes=nbytes, clamped=clamped)
     log(json.dumps({"kernel": "gather_windows_2d", **rec}))
     return rec
 
@@ -474,24 +595,12 @@ def gather_case(torch, src, n, sh, sw, rng, reps, **tags):
 def lattice_case(torch, dev, n, s, d, rng, reps, exact=False, **tags):
     """Kernel 2 against its plain version on random blocks and offsets (5%
     out of range, which must give exactly 0): within 1e-6 x max|eblk|, or
-    ``==`` when ``exact``; timed."""
+    ``==`` when ``exact``; the C entry point ``==`` the wrapper; timed as
+    ``gather_case`` times kernel 1."""
     from opencorr_tpu_torch.ops import lattice2d
 
-    wl = 4 + 2 * d
-    eblk = torch.from_numpy(np.round(rng.uniform(
-        0, 255, (n, s + wl - 1, s + wl - 1))).astype(np.float32)).to(dev)
-    dy = rng.integers(0, 2 * d + 1, (n, s, s))
-    dx = rng.integers(0, 2 * d + 1, (n, s, s))
-    for a in (dy, dx):
-        bad = rng.uniform(size=a.shape) < 0.05
-        a[bad] = rng.choice([-1, 2 * d + 1, -9, 40], bad.sum())
-    dy = torch.from_numpy(dy.astype(np.int32)).to(dev)
-    dx = torch.from_numpy(dx.astype(np.int32)).to(dev)
-    fy = torch.from_numpy(rng.uniform(0, 1, (n, s, s)).astype(
-        np.float32)).to(dev)
-    fx = torch.from_numpy(rng.uniform(0, 1, (n, s, s)).astype(
-        np.float32)).to(dev)
-    args = (eblk, dy, dx, fy, fx)
+    args = lattice2d_inputs(torch, dev, n, s, d, rng)
+    eblk, dy, dx = args[:3]
     got = lattice2d.lattice_eval_2d(*args, d_wobble=d)
     want = lattice2d.lattice_eval_2d_plain(*args, d_wobble=d)
     torch.cuda.synchronize()
@@ -502,6 +611,14 @@ def lattice_case(torch, dev, n, s, d, rng, reps, exact=False, **tags):
     tol = 0.0 if exact else 1e-6 * float(eblk.abs().max())
     check(torch.equal(got, want) if exact else err <= tol,
           f"lattice D={d} {n}x{s}x{s}: max|err| {err} > {tol}")
+    out = torch.full_like(got, float("nan"))
+    entry = entry_call(torch, "lattice2d", lattice2d.bind,
+                       lattice2d.c_args(*args, out, d))
+    ms, entry_us = launch_timing(torch, entry, max(reps, 50))
+    check(torch.equal(out, got), f"lattice D={d} {n}x{s}x{s} through the C "
+          "entry point differs from the wrapper's")
+    wrapped = lambda: lattice2d.lattice_eval_2d(*args, d_wobble=d)
+    _, wrapper_us = launch_timing(torch, wrapped, max(reps, 50))
     in_range = int((~oor).sum())
     nbytes = (eblk.numel() + 5 * n * s * s) * 4
     flops = in_range * LATTICE_FLOPS
@@ -509,8 +626,8 @@ def lattice_case(torch, dev, n, s, d, rng, reps, exact=False, **tags):
     tf = flops / F32_FLOP_PER_S * 1e3
     rec = dict(
         shape=[n, s, s], d_wobble=d, **tags, max_abs_err=err, tolerance=tol,
-        ms=cuda_ms(torch, lambda: lattice2d.lattice_eval_2d(
-            *args, d_wobble=d), reps),
+        ms=ms, wrapper_ms=cuda_ms(torch, wrapped, reps),
+        entry_host_us=entry_us, wrapper_host_us=wrapper_us,
         plain_ms=cuda_ms(torch, lambda: lattice2d.lattice_eval_2d_plain(
             *args, d_wobble=d), reps),
         library_ms=None, bound_ms=max(tb, tf),
@@ -520,27 +637,64 @@ def lattice_case(torch, dev, n, s, d, rng, reps, exact=False, **tags):
     return rec
 
 
-def phase_kernels(torch, ot, img, rng, reps):
-    """Kernel vs plain version on the card at the main path's shapes."""
-    dev = img.device
-    # the stereo path's epipolar candidates (a chunk's POIs x 11 candidates)
-    # and the reconstruction example's (x 7) at r=20, read from a GT4-size
-    # image
-    simg = torch.from_numpy(np.round(rng.uniform(0, 255, STEREO_SIZE)).astype(
-        np.float32)).to(dev)
+def kernel12_cases(ot):
+    """The launch shapes at which phase 2 checks and times kernels 1 and 2.
+    Gathers (n, sh, sw, image), the image "main" (phase 3's 900x280
+    reference), "gt4" (1920x1200) or "rotation" (512x512); lattice evals
+    (n, s, D, exact), ``exact``: ``==`` the plain version, else within
+    1e-6 x max|eblk|.  First the main, stereo and reconstruction paths'
+    shapes, then the planar suite's that those lack
+    (``dic2d_launch_shapes``)."""
     side = 2 * STEREO_EPI_R + 1
-    records = {"gather": [gather_case(torch, src, n, sh, sw, rng, reps)
-                          for n, sh, sw, src in (
-                              (30000, 32, 32, img), (30000, 33, 33, img),
-                              (30000, 40, 40, img), (940, 48, 48, img),
-                              (epipolar_windows(ot), side, side, simg),
-                              (recon_windows(ot), side, side, simg))]}
+    cap = max(256, STEREO_POIS // 32)
+    # the main path's FFTCC windows, subsets, D=2 and D=6 blocks; the
+    # stereo path's epipolar candidates (a chunk's POIs x 11 candidates)
+    # and the reconstruction example's (x 7) at r=20; the stereo path's
+    # IC-GN at r=16 on its 10,000 POIs: subsets, D=2 blocks and, for the
+    # correction cap max(256, n/32), D=6 blocks
+    gathers = [(30000, 32, 32, "main"), (30000, 33, 33, "main"),
+               (30000, 40, 40, "main"), (940, 48, 48, "main"),
+               (epipolar_windows(ot), side, side, "gt4"),
+               (recon_windows(ot), side, side, "gt4"),
+               (STEREO_POIS, 33, 33, "gt4"), (STEREO_POIS, 40, 40, "gt4"),
+               (cap, 48, 48, "gt4")]
     # the main path's D=2 block and D=6 correction, and the stereo path's
-    # second-order ones (10,000 POIs; the correction cap max(256, n/32))
-    records["lattice"] = [
-        lattice_case(torch, dev, n, 33, d, rng, reps)
-        for n, d in ((30000, 2), (940, 6), (STEREO_POIS, 2),
-                     (max(256, STEREO_POIS // 32), 6))]
+    # second-order ones: the chunk, the correction cap and IC-GN's
+    # compacted tail ceil(n/4)
+    lattices = [(30000, 33, 2, False), (940, 33, 6, False),
+                (STEREO_POIS, 33, 2, False), (cap, 33, 6, False),
+                (-(-STEREO_POIS // 4), 33, 2, False)]
+    suite_g, suite_l = dic2d_launch_shapes(ot)
+    gathers += [(n, sh, sw, "rotation") for n, sh, sw in sorted(
+        suite_g - {g[:3] for g in gathers})]
+    lattices += [(n, s, d, True) for n, s, _, d in sorted(
+        suite_l - {(n, s, s, d) for n, s, d, _ in lattices})]
+    return gathers, lattices
+
+
+def case_images(torch, img, rng):
+    """The images ``kernel12_cases`` names, on ``img``'s device."""
+    dev = img.device
+    rand = lambda shape: torch.from_numpy(np.round(rng.uniform(
+        0, 255, shape)).astype(np.float32)).to(dev)
+    return {"main": img, "gt4": rand(STEREO_SIZE), "rotation": rand(ROT_SIZE)}
+
+
+def phase_kernels(torch, ot, img, rng, reps):
+    """Kernel vs plain version on the card at the paths' shapes: kernels 1
+    and 2 at ``kernel12_cases``, kernel 3 at one chunk of each 3D path."""
+    dev = img.device
+    gathers, lattices = kernel12_cases(ot)
+    images = case_images(torch, img, rng)
+    records = {"gather": [
+        gather_case(torch, images[src], n, sh, sw, rng, reps,
+                    **({"slice": "dic2d"} if src == "rotation" else {}))
+        for n, sh, sw, src in gathers], "lattice": []}
+    for n, s, d, exact in lattices:
+        records["lattice"].append(lattice_case(
+            torch, dev, n, s, d, rng, reps, exact=exact,
+            **({"slice": "dic2d"} if exact else {})))
+        torch.cuda.empty_cache()
     records["lattice3d"] = []
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
     for n, s in lattice3d_chunks(torch):
@@ -836,7 +990,7 @@ def run_path(torch, ot, ref, tar, pois, device, csv_path=None):
     return seeded, refined, out, ms, dict(icgn.stats)
 
 
-def phase_main(torch, ot, ref, tar, center, tmpdir):
+def phase_main(torch, ot, ref, tar, center, device_ms, tmpdir):
     from opencorr_tpu_torch.ops import gather2d, lattice2d
 
     pois = ot.poi_grid_2d((30, 30), 100, 300, 2)
@@ -844,12 +998,15 @@ def phase_main(torch, ot, ref, tar, center, tmpdir):
     csv = os.path.join(tmpdir, "main.csv")
     run_path(torch, ot, ref, tar, pois, "cuda", csv)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    gather2d.gather_windows_2d.launches = 0
-    lattice2d.lattice_eval_2d.launches = 0
+    wrappers = (gather2d.gather_windows_2d, lattice2d.lattice_eval_2d)
+    for fn in wrappers:
+        fn.launches = 0
+        fn.shapes = {}
     seeded, refined, out, ms, stats = run_path(torch, ot, ref, tar, pois,
                                                "cuda", csv)
-    launches = {"gather_windows_2d": gather2d.gather_windows_2d.launches,
-                "lattice_eval_2d": lattice2d.lattice_eval_2d.launches}
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    kernel_ms = {fn.__name__: device_sum(fn, device_ms[fn.__name__])
+                 for fn in wrappers}
     peak = torch.cuda.max_memory_allocated()
     for k, v in launches.items():
         check(v > 0, f"main path launched {k} no time")
@@ -876,8 +1033,8 @@ def phase_main(torch, ot, ref, tar, center, tmpdir):
         codes={str(c): int((zn == c).sum()) for c in (-1.0, -3.0, -4.0,
                                                        -5.0)},
         mean_iterations=float(t["r"][conv, 3].mean()),
-        icgn_branches=stats, launches=launches, stage_ms=ms,
-        peak_mem_mb=peak / 2**20, csv_lines=n_lines)
+        icgn_branches=stats, launches=launches, kernel_device_ms=kernel_ms,
+        stage_ms=ms, peak_mem_mb=peak / 2**20, csv_lines=n_lines)
     log(json.dumps({"main_path": res}))
     check(np.isfinite(t["p"][conv]).all() and np.isfinite(t["e"][conv]).all(),
           "non-finite results on converged POIs")
@@ -1218,7 +1375,8 @@ def write_pois_csv(path, table):
 
 def checked_launches(kernel_ms, name, checked, what):
     """Fail unless every launch shape of ``name`` in ``kernel_ms`` (an
-    ``event_ms`` record per kernel) is one of ``checked``."""
+    ``event_ms`` or ``device_sum`` record per kernel) is one of
+    ``checked``."""
     got = set(kernel_ms[name]["by_shape"])
     check(got <= checked, f"{what}: {name} launched at "
           f"{sorted(got - checked)}, which phase 2 did not check")
@@ -1909,10 +2067,11 @@ def phase_stereo_cpu_agreement(torch, ot, views, pts):
     return res
 
 
-def phase_stereo(torch, ot, views, pts, truth, scene, tmpdir):
+def phase_stereo(torch, ot, views, pts, truth, scene, device_ms, tmpdir):
     """The stereo path at GT4's size: the example's four phases, the
     triangulation, save_table_2ds and stereo strain, after a warm-up on the
-    crop; kernels 1 and 2 counted and timed per launch in the timed run."""
+    crop; kernels 1 and 2 counted per launch shape in the timed run, their
+    device time from phase 2's (``device_sum``)."""
     from opencorr_tpu_torch.examples import stereo_3d_dic_epipolar_sift as ex
     from opencorr_tpu_torch.examples import stereo_strain
     from opencorr_tpu_torch.ops import gather2d, lattice2d
@@ -1927,14 +2086,15 @@ def phase_stereo(torch, ot, views, pts, truth, scene, tmpdir):
     wrappers = (gather2d.gather_windows_2d, lattice2d.lattice_eval_2d)
     for fn in wrappers:
         fn.launches = 0
-        fn.events = []
+        fn.shapes = {}
     csv = os.path.join(tmpdir, "stereo.csv")
     info = {}
     out, times = ex.run(*imgs, pts, *stereo_calibrations(ot, "cuda"),
                         out_path=csv, stats=info, device="cuda")
     strained, strain_s = stereo_strain.run(out, device="cuda")
     launches = {fn.__name__: fn.launches for fn in wrappers}
-    kernel_ms = {fn.__name__: event_ms(fn) for fn in wrappers}
+    kernel_ms = {fn.__name__: device_sum(fn, device_ms[fn.__name__])
+                 for fn in wrappers}
     peak = torch.cuda.max_memory_allocated()
     for name, v in launches.items():
         check(v > 0, f"the stereo path launched {name} no time")
@@ -1978,7 +2138,7 @@ def phase_stereo(torch, ot, views, pts, truth, scene, tmpdir):
         strain_computed=int((t["e"] != 0).any(1).sum()),
         icgn_stats={k: info[k] for k in ("icgn2d1", "icgn2d2",
                                          "epipolar_icgn")},
-        launches=launches, kernel_event_ms=kernel_ms, stage_ms=stage_ms,
+        launches=launches, kernel_device_ms=kernel_ms, stage_ms=stage_ms,
         peak_mem_mb=peak / 2**20, csv_lines=n_lines)
     for st in info["sift2d_octaves"]:
         log(json.dumps({"sift2d_octave": st}))
@@ -2036,25 +2196,6 @@ def dic2d_launch_shapes(ot):
         if "icgn" in wl and n >= icgn._COMPACT_MIN:
             lattices.add((-(-n // 4), s, s, 2))
     return gathers, lattices
-
-
-def phase_kernels_dic2d(torch, ot, dev, rng, reps, done):
-    """Kernels 1 and 2 ``==`` their plain versions at every shape of the
-    planar suite that ``done`` (the shapes phase 2 already checked) lacks,
-    timed as phase 2 times them; every gather reads an image of the
-    rotation pair's size.  Returns the records."""
-    gathers, lattices = dic2d_launch_shapes(ot)
-    rimg = torch.from_numpy(np.round(rng.uniform(0, 255, ROT_SIZE)).astype(
-        np.float32)).to(dev)
-    records = {"gather": [gather_case(torch, rimg, n, sh, sw, rng, reps,
-                                      slice="dic2d")
-                          for n, sh, sw in sorted(gathers - done["gather"])],
-               "lattice": []}
-    for n, s, _, d in sorted(lattices - done["lattice"]):
-        records["lattice"].append(lattice_case(
-            torch, dev, n, s, d, rng, reps, exact=True, slice="dic2d"))
-        torch.cuda.empty_cache()
-    return records
 
 
 def warped_pair(shape, a, t, seed):
@@ -2205,10 +2346,11 @@ def phase_dic2d_cpu_agreement(torch, ot, pairs):
     return res
 
 
-def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
+def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
     """The seven workloads of ``examples/dic_2d.run`` on the card at the
     reference's sizes, after a warm-up of each on a small grid; kernels 1
-    and 2 counted over the whole suite and timed per launch per workload.
+    and 2 counted over the whole suite and per launch shape per workload,
+    their device time from phase 2's (``device_sum``).
     Checks every workload's gates, the fftcc_icgn1 table against phase
     3's, and that every launch shape is one phase 2 checked."""
     from opencorr_tpu_torch.examples import dic_2d
@@ -2231,7 +2373,7 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
     matches = {}
     for wl in dic_2d.WORKLOADS:
         for fn in wrappers:
-            fn.events = []
+            fn.shapes = {}
         info = {}
         t0 = time.perf_counter()
         if wl == "strain":
@@ -2245,8 +2387,9 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
         tables[wl] = t
         rec = dict(pois=int(out.n), wall_s=wall_s,
                    stage_s=dict(zip(timer.names, timer.seconds)),
-                   kernel_event_ms={fn.__name__: event_ms(fn)
-                                    for fn in wrappers},
+                   kernel_device_ms={
+                       fn.__name__: device_sum(fn, device_ms[fn.__name__])
+                       for fn in wrappers},
                    **{k: v for k, v in info.items()
                       if k not in ("sift2d_octaves", "sift_matches")})
         if wl != "strain":
@@ -2272,7 +2415,7 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, tmpdir):
         check(v > 0, f"the planar suite launched {name} no time")
     gathers, lattices = checked
     for wl, rec in results.items():
-        km = rec["kernel_event_ms"]
+        km = rec["kernel_device_ms"]
         got_g = {tuple(int(v) for v in s.split("x"))
                  for s in km["gather_windows_2d"]["by_shape"]}
         got_l = {tuple(int(v) for v in s.split("x"))
@@ -2473,11 +2616,12 @@ def phase_sharded(torch, ot, vref, vtar, dvc_seeded, dvc_refined, checked,
 
 
 def phase_reconstruction(torch, ot, views, pts, truth, scene, checked,
-                         tmpdir):
+                         device_ms, tmpdir):
     """``examples/reconstruction_epipolar.run(use_sift=True)`` on the
     GT4-size views of the reconstruction scene, after a warm-up on their
-    top-left 300x400 crop; kernel 1 counted and timed per launch, every
-    launch shape one of ``checked``.  Prints the fitted parallax, the
+    top-left 300x400 crop; kernel 1 counted per launch shape, its device
+    time from phase 2's (``device_sum``), every launch shape one of
+    ``checked``.  Prints the fitted parallax, the
     epipolar reach of every truth from the fitted estimate (how many lie
     past the search's 6 px) and the stage times.  Gates: ZNCC > 0.9 on at
     least 0.9 of the POIs, mean |view-2 position - truth| < 0.02 px, mean
@@ -2499,12 +2643,13 @@ def phase_reconstruction(torch, ot, views, pts, truth, scene, checked,
     torch.cuda.synchronize()
     wrapper = gather2d.gather_windows_2d
     wrapper.launches = 0
-    wrapper.events = []
+    wrapper.shapes = {}
     info = {}
     rows, timer = rec.run(True, *views, os.path.join(tmpdir, "rec.csv"),
                           "cuda", stats=info)
     launches = {"gather_windows_2d": wrapper.launches}
-    kernel_ms = {"gather_windows_2d": event_ms(wrapper)}
+    kernel_ms = {"gather_windows_2d": device_sum(
+        wrapper, device_ms["gather_windows_2d"])}
     cx, cy = info["parallax_x"], info["parallax_y"]
     reach = epipolar_reach_bilinear(scene.cams, pts.astype(np.float64),
                                     truth, cx, cy, (h, w))
@@ -2527,7 +2672,7 @@ def phase_reconstruction(torch, ot, views, pts, truth, scene, checked,
                for c in (-1.0, -3.0, -4.0, -5.0)},
         stage_ms={k: v * 1e3 for k, v in zip(timer.names, timer.seconds)},
         epipolar_icgn=info["epipolar_icgn"], launches=launches,
-        kernel_event_ms=kernel_ms)
+        kernel_device_ms=kernel_ms)
     for st in info["sift2d_octaves"]:
         log(json.dumps({"recon_sift2d_octave": st}))
     log(json.dumps({"reconstruction": res}))
@@ -3226,13 +3371,6 @@ def main() -> int:
     records = phase_kernels(torch, ot, img, rng, reps=20)
     lattice_shape = records["lattice3d"][0]["shape"]  # one DVC chunk
     records["desc"] = phase_desc3d(torch, ot, rng, reps=10)
-    # ... and kernels 1 and 2 at the planar suite's shapes not yet checked
-    done = {"gather": {tuple(r["shape"]) for r in records["gather"]},
-            "lattice": {(*r["shape"], r["d_wobble"])
-                        for r in records["lattice"]}}
-    dic_records = phase_kernels_dic2d(torch, ot, img.device, rng, 20, done)
-    for k in ("gather", "lattice"):
-        records[k] += dic_records[k]
     checked = ({tuple(r["shape"]) for r in records["gather"]},
                {(*r["shape"], r["d_wobble"]) for r in records["lattice"]})
     # launch shapes as the wrappers record them
@@ -3241,12 +3379,19 @@ def main() -> int:
                             for r in records["lattice3d"]},
         "descriptor_hist": {r["launch"] for r in records["desc"]}}
     checked_gathers = {"x".join(map(str, g)) for g in checked[0]}
+    # kernels 1 and 2: phase 2's device ms a launch, by launch shape as the
+    # wrappers record it, for the paths' sums
+    device_ms = {
+        "gather_windows_2d": {"x".join(map(str, r["shape"])): r["ms"]
+                              for r in records["gather"]},
+        "lattice_eval_2d": {"x".join(map(str, (*r["shape"], r["d_wobble"]))):
+                            r["ms"] for r in records["lattice"]}}
 
     # phase 3: the main path
     with tempfile.TemporaryDirectory() as tmpdir:
         main_res, launches, main_table = phase_main(
             torch, ot, ot.Image2D.from_array(ref), ot.Image2D.from_array(tar),
-            center, tmpdir)
+            center, device_ms, tmpdir)
 
     # phase 4: cuda against the plain versions on the cpu
     phase_cpu_agreement(torch, ot, ot.Image2D.from_array(ref),
@@ -3286,7 +3431,7 @@ def main() -> int:
     # phase 10: the stereo path at GT4's size
     with tempfile.TemporaryDirectory() as tmpdir:
         stereo_res, stereo_launches, stereo_kp = phase_stereo(
-            torch, ot, views, spts, struth, scene, tmpdir)
+            torch, ot, views, spts, struth, scene, device_ms, tmpdir)
     by_path["stereo"] = dict(stereo_launches)
     del views, spts, struth, scene
     torch.cuda.empty_cache()
@@ -3300,7 +3445,7 @@ def main() -> int:
     # phase 12: the planar example suite at the reference's sizes
     with tempfile.TemporaryDirectory() as tmpdir:
         dic_res, dic_launches, dic_kp = phase_dic2d(
-            torch, ot, pairs, main_table, checked, tmpdir)
+            torch, ot, pairs, main_table, checked, device_ms, tmpdir)
     by_path["dic2d"] = dict(dic_launches)
     del pairs
     torch.cuda.empty_cache()
@@ -3326,7 +3471,8 @@ def main() -> int:
     log(json.dumps({"recon_render_s": time.perf_counter() - t0}))
     with tempfile.TemporaryDirectory() as tmpdir:
         recon_res, recon_launches = phase_reconstruction(
-            torch, ot, rviews, rpts, rtruth, rscene, checked_gathers, tmpdir)
+            torch, ot, rviews, rpts, rtruth, rscene, checked_gathers,
+            device_ms, tmpdir)
     by_path["reconstruction"] = dict(recon_launches)
     del rviews, rpts, rtruth, rscene
     torch.cuda.empty_cache()
@@ -3354,15 +3500,18 @@ def main() -> int:
             "stage_ms"]["icgn3d1"])}))
 
     # phase 17: the records
-    path_ms = {"dvc": dvc_res["kernel_event_ms"],
+    # kernels 3 and 4: CUDA events a launch; kernels 1 and 2: phase 2's
+    # device ms a launch x launches, per shape
+    path_ms = {"2d": main_res["kernel_device_ms"],
+               "dvc": dvc_res["kernel_event_ms"],
                "sift": sift_res["kernel_event_ms"],
                "sift_host": host_res["kernel_event_ms"],
-               "stereo": stereo_res["kernel_event_ms"],
-               "dic2d": merge_event_ms([r["kernel_event_ms"]
+               "stereo": stereo_res["kernel_device_ms"],
+               "dic2d": merge_event_ms([r["kernel_device_ms"]
                                         for r in dic_res.values()]),
                "dvc_example": dvx_res["kernel_event_ms"],
                "sharded": shard_res["kernel_event_ms"],
-               "reconstruction": recon_res["kernel_event_ms"]}
+               "reconstruction": recon_res["kernel_device_ms"]}
     def summary(name, route, source, replaces, recs, ref_shape, **pick):
         r = next(x for x in recs if x["shape"] == ref_shape
                  and all(x.get(k) == v for k, v in pick.items()))
@@ -3371,11 +3520,11 @@ def main() -> int:
             launches=launches[name],
             launches_by_path={p: v[name] for p, v in by_path.items()
                               if name in v},
-            path_event_ms={p: v[name] for p, v in path_ms.items()
-                           if name in v},
+            path_ms={p: v[name] for p, v in path_ms.items() if name in v},
             max_abs_err=max(x["max_abs_err"] for x in recs),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **{k: r[k] for k in ("wrapper_ms", "wrapper_host_us") if k in r},
             shape=ref_shape, shapes=recs)
 
     kernels = [

@@ -15,20 +15,45 @@
 // [N, sy, sx] sample arrays once and writes one: about 850 MB at the 30k-POI
 // D=2 shape, against 16 taps x 3 flops per sample of arithmetic.
 //
-// Design: one block per POI.  The block stages the POI's extended block
-// (40x40 or 48x48 floats at r=16, 6.4 or 9.2 KB) in shared memory with
-// coalesced loads; each thread then takes samples, forms the four y and
-// four x weights from BC held in constant memory, and sums its 16 taps
-// straight from shared memory.  The TPU kernel's (4+2D)^2 masked
-// placements, lane packing and VMEM budgets exist only for the TPU's
-// vector layout and have no counterpart here.  Every product and sum is
-// rounded separately (no FMA contraction), in the order of the plain
-// PyTorch version, so the two agree to the last bit on the same inputs.
+// Design: persistent blocks (those the card holds at once) walk work items,
+// an item being one POI or, where the POIs are too few to fill the card or
+// a POI does not fit, a band of its subset rows.  An item's inputs are
+// contiguous ranges: the block rows its band reads (band + 3 + 2D rows of
+// eblk) and the band's samples in each of dy, dx, fy and fx.  One thread
+// brings all five into a slot of a ring in shared memory with bulk copies
+// (cp.async.bulk, the TMA's linear mode) completed on one mbarrier, and
+// issues the copies of the item a ring ahead as soon as a slot is read, so
+// copies stay in flight while the block computes.  The ring holds three
+// whole POIs (D=2: 24 KB a slot at 33x33 subsets), else two (D=6), else
+// three bands.  A range starts at any 4-byte address (sy and sx are odd),
+// so each copy covers the 16-byte granules that hold it and the threads
+// find its first element in the slot from the address; no tensor map is
+// needed.  Threads take consecutive samples, so the sample reads and the
+// taps of smooth offsets fall in distinct shared-memory banks (16-byte
+// vectors a thread would put four threads on each bank), form the four y
+// and four x weights from BC in constant memory, sum their 16 taps from
+// the slot and write the output coalesced.  A block has at most 384
+// threads, sized so that they take whole rounds of an item's samples.  On
+// the H100 one POI a block without a ring measured 3 points of the byte
+// bound faster at 33x33 subsets and 8-10 slower at 25x25; the ring stays.
+// The TPU kernel's (4+2D)^2 masked placements, lane packing and VMEM
+// budgets exist only for the TPU's vector layout and have no counterpart
+// here.  Every product and sum is rounded separately (no FMA contraction),
+// in the order of the plain PyTorch version, so the two agree to the last
+// bit on the same inputs.  Each csrc/*.cu stands alone (the mbarrier and
+// bulk-copy helpers repeat lattice3d.cu's) so that any one builds from a
+// copied directory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// Threads a block at most, and blocks an SM aimed for.
+constexpr int kMaxThreads = 384;
+constexpr int kMinBlocks = 3;
+// Shared memory per block: at most this, so that the blocks fit on an SM.
+constexpr int kSmemBudget = (227 / kMinBlocks) * 1024 - 1024;
 
 // BC = B * C from oc_cubic_bspline.h:52-58, rounded once to float32 like
 // the package's BC_MATRIX.
@@ -49,49 +74,222 @@ __device__ __forceinline__ float tap_weight(float f, int t) {
   return __fadd_rn(kBC[3][t], acc);
 }
 
-__global__ void lattice2d_kernel(const float* __restrict__ eblk,
-                                 const int32_t* __restrict__ dy,
-                                 const int32_t* __restrict__ dx,
-                                 const float* __restrict__ fy,
-                                 const float* __restrict__ fx,
-                                 float* __restrict__ out, int sy, int sx,
-                                 int ey, int ex, int dmax) {
-  extern __shared__ float blk[];
-  const int b = blockIdx.x;
-  const int nb = ey * ex;
-  const float* src = eblk + (size_t)b * nb;
-  for (int k = threadIdx.x; k < nb; k += blockDim.x) blk[k] = src[k];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The barrier's one arrival, expecting ``bytes`` of copies to complete on it.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of ``bytes`` (a multiple of 16, both ends 16-aligned) from
+// global to shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_copy(float* dst, uintptr_t src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The 16-byte granules that hold ``count`` floats from ``p``: start, bytes.
+__device__ __forceinline__ uintptr_t granule(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)15;
+}
+__device__ __forceinline__ uint32_t granule_bytes(const void* p, int count) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return (uint32_t)(((a + (uintptr_t)count * 4u + 15u) & ~(uintptr_t)15) -
+                    (a & ~(uintptr_t)15));
+}
+// Where the range from ``p`` starts inside its copy, in floats.
+__device__ __forceinline__ int lead(const void* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) & 15u) >> 2);
+}
+
+struct Geo {
+  int n, sy, sx, ey, ex, dmax, w;
+  int band, nbands;  // rows an item, items a POI
+  int eslot, pslot;  // floats a slot gives the block rows and each array
+};
+
+// One item: its block rows in eblk and the offset of its first sample.
+struct Item {
+  const float* rows;
+  size_t s0;
+  int nrows, nsamp;
+};
+
+__device__ __forceinline__ Item item_of(const Geo& g, const float* eblk,
+                                        uint32_t item) {
+  const uint32_t b = g.nbands == 1 ? item : item / (uint32_t)g.nbands;
+  const int j0 = (int)(item - b * g.nbands) * g.band;
+  const int rows = min(g.band, g.sy - j0);
+  return Item{eblk + ((size_t)b * g.ey + j0) * g.ex,
+              ((size_t)b * g.sy + j0) * g.sx, rows + g.w - 1, rows * g.sx};
+}
+
+// kRing: slots in the ring, 2 or 3.
+template <int kRing>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+lattice2d_kernel(const float* __restrict__ eblk,
+                 const int32_t* __restrict__ dy,
+                 const int32_t* __restrict__ dx,
+                 const float* __restrict__ fy, const float* __restrict__ fx,
+                 float* __restrict__ out, Geo g) {
+  extern __shared__ __align__(128) float ring[];
+  const int stride = g.eslot + 4 * g.pslot;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kRing * stride);
+  const uint32_t items = (uint32_t)g.n * g.nbands;
+  // this block's items: blockIdx.x + t * gridDim.x for t < mine
+  const int mine =
+      blockIdx.x < items ? (int)((items - blockIdx.x - 1) / gridDim.x + 1) : 0;
+  auto item = [&](int t) {
+    return item_of(g, eblk, blockIdx.x + (uint32_t)t * gridDim.x);
+  };
+  // thread 0: the five bulk copies of item t into its slot
+  auto issue = [&](int t) {
+    const Item m = item(t);
+    const void* src[5] = {m.rows, dy + m.s0, dx + m.s0, fy + m.s0,
+                          fx + m.s0};
+    float* slot = ring + (t % kRing) * stride;
+    uint64_t* bar = &bars[t % kRing];
+    uint32_t total = granule_bytes(src[0], m.nrows * g.ex);
+    for (int a = 1; a < 5; ++a) total += granule_bytes(src[a], m.nsamp);
+    mbar_expect(bar, total);
+    bulk_copy(slot, granule(src[0]), granule_bytes(src[0], m.nrows * g.ex),
+              bar);
+    for (int a = 1; a < 5; ++a) {
+      bulk_copy(slot + g.eslot + (a - 1) * g.pslot, granule(src[a]),
+                granule_bytes(src[a], m.nsamp), bar);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(&bars[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int t = 0; t < min(kRing, mine); ++t) issue(t);
+  }
   __syncthreads();
 
-  const int s = sy * sx;
-  const size_t base = (size_t)b * s;
-  for (int k = threadIdx.x; k < s; k += blockDim.x) {
-    const int oy = dy[base + k];
-    const int ox = dx[base + k];
-    float acc = 0.0f;
-    if (oy >= 0 && oy <= dmax && ox >= 0 && ox <= dmax) {
-      const float fyv = fy[base + k];
-      const float fxv = fx[base + k];
-      float wy[4], wx[4];
+  const int T = (int)blockDim.x;
+  const int jt = (int)threadIdx.x / g.sx;
+  const int it = (int)threadIdx.x - jt * g.sx;
+  const int dj = T / g.sx;
+  const int di = T - dj * g.sx;
+  const unsigned dmax = (unsigned)g.dmax;
+  const int ex = g.ex;
+
+  for (int t = 0; t < mine; ++t) {
+    const Item m = item(t);
+    const float* slot = ring + (t % kRing) * stride;
+    const float* blk = slot + lead(m.rows);
+    const int32_t* sdy = reinterpret_cast<const int32_t*>(
+        slot + g.eslot + lead(dy + m.s0));
+    const int32_t* sdx = reinterpret_cast<const int32_t*>(
+        slot + g.eslot + g.pslot + lead(dx + m.s0));
+    const float* sfy = slot + g.eslot + 2 * g.pslot + lead(fy + m.s0);
+    const float* sfx = slot + g.eslot + 3 * g.pslot + lead(fx + m.s0);
+    float* dst = out + m.s0;
+    mbar_wait(&bars[t % kRing], (uint32_t)((t / kRing) & 1));
+
+    int jj = jt, ii = it;
+    for (int s = (int)threadIdx.x; s < m.nsamp; s += T) {
+      const int oy = sdy[s];
+      const int ox = sdx[s];
+      float acc = 0.0f;
+      if ((unsigned)oy <= dmax && (unsigned)ox <= dmax) {
+        const float fyv = sfy[s];
+        const float fxv = sfx[s];
+        float wy[4], wx[4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        wy[t] = tap_weight(fyv, t);
-        wx[t] = tap_weight(fxv, t);
-      }
-      const int i = k / sx;
-      const int j = k - i * sx;
-      const float* p = blk + (i + oy) * ex + (j + ox);
+        for (int q = 0; q < 4; ++q) {
+          wy[q] = tap_weight(fyv, q);
+          wx[q] = tap_weight(fxv, q);
+        }
+        const float* p = blk + (jj + oy) * ex + (ii + ox);
 #pragma unroll
-      for (int ty = 0; ty < 4; ++ty) {
+        for (int ty = 0; ty < 4; ++ty) {
 #pragma unroll
-        for (int tx = 0; tx < 4; ++tx) {
-          acc = __fadd_rn(acc,
-                          __fmul_rn(__fmul_rn(wy[ty], wx[tx]), p[ty * ex + tx]));
+          for (int tx = 0; tx < 4; ++tx) {
+            acc = __fadd_rn(
+                acc, __fmul_rn(__fmul_rn(wy[ty], wx[tx]), p[ty * ex + tx]));
+          }
         }
       }
+      dst[s] = acc;
+      ii += di;
+      jj += dj;
+      if (ii >= g.sx) {
+        ii -= g.sx;
+        ++jj;
+      }
     }
-    out[base + k] = acc;
+    __syncthreads();  // item t is read: its slot takes item t + ring
+    if (threadIdx.x == 0 && t + kRing < mine) issue(t + kRing);
   }
+}
+
+// Blocks an SM holds at ``threads`` and ``smem``, and the SM count, on the
+// current device: asked of the runtime once a (kernel, device, threads,
+// smem) and kept in a small table, so that a launch spends no host time
+// on it.
+cudaError_t per_sm_blocks(const void* kernel, int threads, size_t smem,
+                          int* per_sm, int* sms) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads, per_sm, sms;
+    size_t smem;
+  };
+  constexpr int kEntries = 32;
+  static Entry table[kEntries];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  for (int k = 0; k < used && k < kEntries; ++k) {
+    const Entry& x = table[k];
+    if (x.kernel == kernel && x.dev == dev && x.threads == threads &&
+        x.smem == smem) {
+      *per_sm = x.per_sm;
+      *sms = x.sms;
+      return cudaSuccess;
+    }
+  }
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBudget);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  table[used % kEntries] = Entry{kernel, dev, threads, *per_sm, *sms, smem};
+  ++used;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -101,16 +299,81 @@ extern "C" int oc_lattice_eval_2d(const float* eblk, const int32_t* dy,
                                   const float* fx, float* out, int n, int sy,
                                   int sx, int ey, int ex, int dmax,
                                   void* stream) {
-  const size_t smem = (size_t)ey * ex * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lattice2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const int w = dmax + 4;
+  if (dmax < 0 || ey != sy + w - 1 || ex != sx + w - 1 || n < 0 || sy < 1 ||
+      sx < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaSuccess;
+  Geo g;
+  g.n = n;
+  g.sy = sy;
+  g.sx = sx;
+  g.ey = ey;
+  g.ex = ex;
+  g.dmax = dmax;
+  g.w = w;
+  // a slot holds a band's block rows and samples, each range with up to 3
+  // leading and trailing floats of the granules around it
+  auto eslot_of = [&](int band) { return ((band + w - 1) * ex + 6) & ~3; };
+  auto pslot_of = [&](int band) { return (band * sx + 6) & ~3; };
+  auto smem_of = [&](int band, int ring) {
+    return (size_t)ring * (eslot_of(band) + 4 * pslot_of(band)) *
+               sizeof(float) +
+           ring * sizeof(uint64_t);
+  };
+  // whole POIs in a ring of three slots, else of two, else bands of rows
+  // in a ring of three, the widest bands that fit
+  int ring = 3, fit = sy;
+  if (smem_of(sy, 3) > (size_t)kSmemBudget) {
+    if (smem_of(sy, 2) <= (size_t)kSmemBudget) {
+      ring = 2;
+    } else {
+      while (fit > 0 && smem_of(fit, ring) > (size_t)kSmemBudget) --fit;
+    }
+  }
+  if (fit < 1) return (int)cudaErrorInvalidValue;
+  const void* kernel = ring == 3 ? (const void*)lattice2d_kernel<3>
+                                 : (const void*)lattice2d_kernel<2>;
+  int nbands = (sy + fit - 1) / fit;
+  // the threads for whole rounds of a band's samples
+  auto threads_of = [&](int band) {
+    const int per_item = band * sx;
+    const int rounds = (per_item + kMaxThreads - 1) / kMaxThreads;
+    return ((per_item + rounds - 1) / rounds + 31) / 32 * 32;
+  };
+  int band = (sy + nbands - 1) / nbands;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = per_sm_blocks(kernel, threads_of(band), smem_of(band, ring),
+                                &per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  // too few POIs to fill the card: split them into more bands
+  if ((long long)n * nbands < (long long)per_sm * sms) {
+    const long long want = ((long long)per_sm * sms + n - 1) / n;
+    nbands = (int)(want < sy ? want : sy);
+    band = (sy + nbands - 1) / nbands;
+    e = per_sm_blocks(kernel, threads_of(band), smem_of(band, ring), &per_sm,
+                      &sms);
     if (e != cudaSuccess) return (int)e;
   }
-  if (n > 0) {
-    lattice2d_kernel<<<n, 256, smem, (cudaStream_t)stream>>>(
-        eblk, dy, dx, fy, fx, out, sy, sx, ey, ex, dmax);
+  g.band = band;
+  g.nbands = (sy + band - 1) / band;
+  if ((long long)n * g.nbands > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  g.eslot = eslot_of(band);
+  g.pslot = pslot_of(band);
+  const long long items = (long long)n * g.nbands;
+  const long long resident = (long long)per_sm * sms;
+  const int blocks = (int)(items < resident ? items : resident);
+  const dim3 grid(blocks), block(threads_of(band));
+  const size_t smem = smem_of(band, ring);
+  if (ring == 3) {
+    lattice2d_kernel<3><<<grid, block, smem, (cudaStream_t)stream>>>(
+        eblk, dy, dx, fy, fx, out, g);
+  } else {
+    lattice2d_kernel<2><<<grid, block, smem, (cudaStream_t)stream>>>(
+        eblk, dy, dx, fy, fx, out, g);
   }
   return (int)cudaGetLastError();
 }

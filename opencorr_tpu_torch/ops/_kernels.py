@@ -10,6 +10,7 @@ one ``nvcc`` process each.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -101,18 +102,31 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+def on_device(device):
+    """``torch.cuda.device(device)`` where ``device`` is not the current
+    CUDA device, else a context that does nothing."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def launch(wrapper, call, shape=None) -> None:
     """Run ``call``, one kernel launch through ctypes that returns a
     cudaError_t code, raise on an error, and count it on ``wrapper``
-    (``wrapper.launches``).  While ``wrapper.events`` is a list, the launch
-    is bracketed by two CUDA events appended to it with ``shape`` (the
-    launch's problem shape, as the wrapper gives it) as (start, end,
-    shape), so a caller can sum the kernel's device time over a run, per
-    shape."""
-    import torch
-
+    (``wrapper.launches``).  While ``wrapper.shapes`` is a dict, the launch
+    is also counted there under ``shape`` (the launch's problem shape, as
+    the wrapper gives it).  While ``wrapper.events`` is a list, the launch
+    is bracketed by two CUDA events appended to it with ``shape`` as
+    (start, end, shape), so a caller can sum the kernel's event time over a
+    run, per shape; a pair also holds the host's launch latency whenever
+    the stream has run dry, so it overstates a kernel of a few
+    microseconds."""
     events = wrapper.events
     if events is not None:
+        import torch
+
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -120,4 +134,7 @@ def launch(wrapper, call, shape=None) -> None:
     if events is not None:
         end.record()
         events.append((start, end, shape))
+    shapes = getattr(wrapper, "shapes", None)
+    if shapes is not None:
+        shapes[shape] = shapes.get(shape, 0) + 1
     wrapper.launches += 1

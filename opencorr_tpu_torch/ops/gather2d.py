@@ -11,6 +11,7 @@ from the end (no caller passes one).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,12 +33,26 @@ def gather_windows_2d_plain(img: torch.Tensor, y0: torch.Tensor,
     return img[rows[:, :, None], cols[:, None, :]]
 
 
-def _lib():
-    lib = _kernels.load("gather2d")
+def bind(lib: ctypes.CDLL):
+    """The kernel's C entry point in a loaded library, typed."""
     fn = lib.oc_gather_windows_2d
     fn.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P]
     fn.restype = _I
     return fn
+
+
+def c_args(img, y0, x0, out, sh: int, sw: int):
+    """The C entry point's arguments for checked tensors, on the current
+    stream."""
+    return (img.data_ptr(), img.shape[0], img.shape[1], y0.data_ptr(),
+            x0.data_ptr(), y0.shape[0], sh, sw, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The typed entry point of the package's build, bound once."""
+    return bind(_kernels.load("gather2d"))
 
 
 def gather_windows_2d(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
@@ -63,15 +78,15 @@ def gather_windows_2d(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
                          f"{tuple(x0.shape)}")
     out = torch.empty((n, sh, sw), dtype=torch.float32, device=img.device)
     if n:
-        with torch.cuda.device(img.device):
-            fn = _lib()
-            _kernels.launch(gather_windows_2d, lambda: fn(
-                img.data_ptr(), img.shape[0], img.shape[1], y0.data_ptr(),
-                x0.data_ptr(), n, sh, sw, out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream), shape=(n, sh, sw))
+        fn = _entry()
+        with _kernels.on_device(img.device):
+            _kernels.launch(gather_windows_2d, lambda: fn(*c_args(
+                img, y0, x0, out, sh, sw)), shape=(n, sh, sw))
     return out
 
 
 gather_windows_2d.launches = 0  # kernel launches, for run-level checks
 # a list: (start, end) CUDA events and the shape (n, sh, sw) of a launch
 gather_windows_2d.events = None
+# a dict: launches by shape (n, sh, sw), counted while it is set
+gather_windows_2d.shapes = None

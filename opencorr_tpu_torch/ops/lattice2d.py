@@ -17,6 +17,7 @@ for CUDA tensors and uses :func:`lattice_eval_2d_plain` for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -61,12 +62,26 @@ def lattice_eval_2d_plain(eblk: torch.Tensor, dy: torch.Tensor,
     return torch.where(ok, acc, torch.zeros_like(acc))
 
 
-def _lib():
-    lib = _kernels.load("lattice2d")
+def bind(lib: ctypes.CDLL):
+    """The kernel's C entry point in a loaded library, typed."""
     fn = lib.oc_lattice_eval_2d
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     fn.restype = _I
     return fn
+
+
+def c_args(eblk, dy, dx, fy, fx, out, d_wobble: int):
+    """The C entry point's arguments for checked tensors, on the current
+    stream."""
+    return (eblk.data_ptr(), dy.data_ptr(), dx.data_ptr(), fy.data_ptr(),
+            fx.data_ptr(), out.data_ptr(), *dy.shape, *eblk.shape[1:],
+            2 * d_wobble, torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The typed entry point of the package's build, bound once."""
+    return bind(_kernels.load("lattice2d"))
 
 
 def lattice_eval_2d(eblk: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
@@ -97,12 +112,10 @@ def lattice_eval_2d(eblk: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
                              f"{eblk.device}, got {t.dtype} on {t.device}")
     out = torch.empty((n, sy, sx), dtype=torch.float32, device=eblk.device)
     if n:
-        with torch.cuda.device(eblk.device):
-            fn = _lib()
-            _kernels.launch(lattice_eval_2d, lambda: fn(
-                eblk.data_ptr(), dy.data_ptr(), dx.data_ptr(), fy.data_ptr(),
-                fx.data_ptr(), out.data_ptr(), n, sy, sx, ey, ex,
-                2 * d_wobble, torch.cuda.current_stream().cuda_stream),
+        fn = _entry()
+        with _kernels.on_device(eblk.device):
+            _kernels.launch(lattice_eval_2d, lambda: fn(*c_args(
+                eblk, dy, dx, fy, fx, out, d_wobble)),
                 shape=(n, sy, sx, d_wobble))
     return out
 
@@ -110,3 +123,5 @@ def lattice_eval_2d(eblk: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
 lattice_eval_2d.launches = 0  # kernel launches, for run-level checks
 # a list: (start, end) CUDA events and the shape (n, sy, sx, D) of a launch
 lattice_eval_2d.events = None
+# a dict: launches by shape (n, sy, sx, D), counted while it is set
+lattice_eval_2d.shapes = None

@@ -5,14 +5,18 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Gather: bit-exact, corners clamped into the image.  Lattice (2D and 3D):
+Gather: bit-exact, corners clamped into the image, also at the shapes
+that stress its walk in groups of four outputs (windows of 1-3 outputs,
+N = 1, sw = W) and on inputs off the 16-byte grid.  Lattice (2D and 3D):
 within 1e-6 x max|eblk| (the 3D kernel also ``==`` on the shapes that
 exercise its ring of staged planes), and exactly 0 where a placement
-offset is out of range.  The SIFT3D descriptor histogram: within 1e-5 x
-max|S| (float atomics sum in an order that varies from run to run), on
-white noise and on blurred volumes.  Gather and lattice also at the
-planar suite's r=12 shapes, the lattice there ``==``; the gather at the
-reconstruction search's chunk.  The DVC modules, the SIFT3D slice, the
+offset is out of range; the 2D kernel ``==`` where its ring of staged
+POIs and bands meets odd shapes (N = 1, N below and above the persistent
+grid, D = 1, 2 and 6, sy != sx, blocks off the 16-byte grid).  The SIFT3D
+descriptor histogram: within 1e-5 x max|S| (float atomics sum in an order
+that varies from run to run), on white noise and on blurred volumes.
+Gather and lattice also at the planar suite's r=12 shapes, the lattice
+there ``==``; the gather at the reconstruction search's chunk.  The DVC modules, the SIFT3D slice, the
 planar refiners, the z-guarded icgn3d1 and ShardedICGN3D1 on a group of
 one: cuda against cpu on small pairs."""
 
@@ -42,20 +46,23 @@ def _corners(n, h, w, sh, sw, seed, low=0):
 
 
 def _lattice_inputs(n, s, d, seed):
-    """eblk and sample arrays at subset side ``s`` and wobble ``d``, with
-    out-of-range offsets (-1 and 2d+1, and far ones) injected."""
+    """eblk and sample arrays at subset side ``s`` (an int, or (sy, sx))
+    and wobble ``d``, with out-of-range offsets (-1 and 2d+1, and far ones)
+    injected."""
     rng = np.random.default_rng(seed)
     w = 4 + 2 * d
-    eblk = np.round(rng.uniform(0, 255, (n, s + w - 1, s + w - 1))
+    sy, sx = (s, s) if np.isscalar(s) else s
+    side = (n, sy, sx)
+    eblk = np.round(rng.uniform(0, 255, (n, sy + w - 1, sx + w - 1))
                     ).astype(np.float32)
-    dy = rng.integers(0, 2 * d + 1, (n, s, s)).astype(np.int32)
-    dx = rng.integers(0, 2 * d + 1, (n, s, s)).astype(np.int32)
-    bad = rng.uniform(size=(n, s, s)) < 0.1
+    dy = rng.integers(0, 2 * d + 1, side).astype(np.int32)
+    dx = rng.integers(0, 2 * d + 1, side).astype(np.int32)
+    bad = rng.uniform(size=side) < 0.1
     dy[bad] = rng.choice([-1, 2 * d + 1, -7, 99], bad.sum())
-    bad2 = rng.uniform(size=(n, s, s)) < 0.1
+    bad2 = rng.uniform(size=side) < 0.1
     dx[bad2] = rng.choice([-1, 2 * d + 1, -3, 50], bad2.sum())
-    fy = rng.uniform(0, 1, (n, s, s)).astype(np.float32)
-    fx = rng.uniform(0, 1, (n, s, s)).astype(np.float32)
+    fy = rng.uniform(0, 1, side).astype(np.float32)
+    fx = rng.uniform(0, 1, side).astype(np.float32)
     fy[0, 0, :4] = [0.0, np.float32(np.nextafter(1, 0)), 0.5, 0.25]
     return eblk, dy, dx, fy, fx
 
@@ -125,6 +132,101 @@ def test_lattice_kernel_vs_plain(cuda, d, n):
     assert (got[bad] == 0).all()
     tol = 1e-6 * float(arrs[0].abs().max())
     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,n,sh,sw", [
+    (900, 280, 3001, 25, 25),  # 625 outputs a window: groups of 4 straddle
+    (900, 280, 10007, 33, 33),  # several rounds of the grid, ragged
+    (1200, 1920, 1489, 41, 41),
+    (90, 70, 5, 1, 1),  # 1x1 windows: a group of 4 spans four windows
+    (90, 70, 7, 1, 70),  # 1xW rows: sw = W
+    (90, 70, 9, 2, 1),  # 2 outputs a window
+    (90, 70, 13, 1, 3),  # 3 outputs a window
+    (90, 70, 1, 33, 33),  # N = 1: one group short of 1,089, a tail of 1
+    (90, 70, 2, 5, 7),  # 70 outputs: a tail of 2
+    (90, 70, 4, 90, 70),  # the whole image
+])
+def test_gather_kernel_edge_shapes(cuda, h, w, n, sh, sw):
+    """Kernel 1 ``==`` its plain version where the flat walk in groups of
+    four outputs crosses rows and windows oddly: sh*sw not a multiple of 4,
+    fewer than 4 outputs a window, N = 1, N past one round of the
+    persistent grid, sw = W, and corners that need clamping (the first half
+    legal, the rest up to a window past either end)."""
+    rng = np.random.default_rng(h + n + sh * sw)
+    img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32))
+    y0, x0 = (torch.from_numpy(a) for a in _corners(n, h, w, sh, sw,
+                                                    seed=n, low=-sh))
+    before = gather2d.gather_windows_2d.launches
+    got = gather2d.gather_windows_2d(img.to(cuda), y0.to(cuda), x0.to(cuda),
+                                     sh=sh, sw=sw)
+    torch.cuda.synchronize()
+    assert gather2d.gather_windows_2d.launches == before + 1
+    want = gather2d.gather_windows_2d_plain(img, y0, x0, sh=sh, sw=sw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_unaligned_inputs(cuda):
+    """Kernel 1 on an image and corners that start 4 bytes past a 16-byte
+    boundary (views into larger tensors): ``==`` its plain version."""
+    rng = np.random.default_rng(5)
+    big = torch.from_numpy(rng.uniform(0, 255, 900 * 280 + 1).astype(
+        np.float32)).to(cuda)
+    img = big[1:].view(900, 280)
+    y0, x0 = (torch.from_numpy(np.concatenate([a[:1], a])).to(cuda)[1:]
+              for a in _corners(777, 900, 280, 33, 33, seed=5, low=-33))
+    got = gather2d.gather_windows_2d(img, y0, x0, sh=33, sw=33)
+    want = gather2d.gather_windows_2d_plain(img, y0, x0, sh=33, sw=33)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,s", [
+    (2, 1, 33),  # N = 1: the POI splits into bands of rows to fill the card
+    (6, 1, 33),
+    (1, 1, 5),
+    (1, 37, 17),  # N below the persistent grid
+    (2, 3, 7),
+    (2, 2500, 33),  # N above the grid, 1,089 samples a POI
+    (2, 4001, 25),
+    (6, 940, 33),  # D=6: a POI's ring slot does not fit, two bands a POI
+    (6, 1313, 25),
+    (1, 600, 9),
+    (2, 50, (9, 31)),  # sy != sx
+    (2, 9, 32),  # even sides: POI blocks off the 16-byte grid
+])
+def test_lattice_kernel_edge_shapes(cuda, d, n, s):
+    """Kernel 2 ``==`` its plain version, and exactly 0 where an offset is
+    out of range, where the persistent blocks, the ring of staged items and
+    the bands of rows meet odd shapes: samples a POI not a multiple of 4,
+    N = 1, N below and above the grid, D = 1, 2 and 6."""
+    arrs = [torch.from_numpy(a).to(cuda)
+            for a in _lattice_inputs(n, s, d, seed=n + d)]
+    before = lattice2d.lattice_eval_2d.launches
+    got = lattice2d.lattice_eval_2d(*arrs, d_wobble=d)
+    want = lattice2d.lattice_eval_2d_plain(*arrs, d_wobble=d)
+    torch.cuda.synchronize()
+    assert lattice2d.lattice_eval_2d.launches == before + 1
+    bad = _out_of_range(arrs[1], arrs[2], d)
+    assert bad.any() and (got[bad] == 0).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lattice_kernel_unaligned_inputs(cuda):
+    """Kernel 2 on blocks and sample arrays that start 4 bytes past a
+    16-byte boundary (views into larger tensors): ``==`` its plain
+    version."""
+    arrs = []
+    for a in _lattice_inputs(300, 33, 2, seed=9):
+        flat = torch.from_numpy(np.concatenate([a.ravel()[:1], a.ravel()]))
+        arrs.append(flat.to(cuda)[1:].view(a.shape))
+    got = lattice2d.lattice_eval_2d(*arrs, d_wobble=2)
+    want = lattice2d.lattice_eval_2d_plain(*arrs, d_wobble=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

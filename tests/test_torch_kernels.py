@@ -5,7 +5,10 @@ against their plain versions are in test_torch_cuda.py).
 Gather: bit-exact, corners past the image clamped into it as
 ``lax.dynamic_slice`` clamps them.  Lattice:
 within 1e-6 x max|eblk| (the float32 tap sum is taken in another order),
-and exactly 0 where a placement offset is out of range."""
+and exactly 0 where a placement offset is out of range.  Also the
+launch bookkeeping the card runs read: launches counted per shape, and
+``chip_smoke.py``'s path sums from phase 2's device times at the shapes
+it checks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -83,3 +86,67 @@ def test_wrappers_check_shapes():
         lattice2d.lattice_eval_2d(eblk, dy, dx, fy, fx, d_wobble=6)
     with pytest.raises(ValueError):
         lattice2d.lattice_eval_2d(eblk, dy, dx[:, :4], fy, fx, d_wobble=2)
+
+
+def test_launch_counts_shapes():
+    """``_kernels.launch`` counts a launch on the wrapper and, while its
+    ``shapes`` dict is set, per launch shape; a failed launch raises and
+    counts nothing."""
+    from opencorr_tpu_torch.ops import _kernels
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.events, wrapper.shapes = 0, None, {}
+    for shape in ((30, 33, 33), (30, 33, 33), (7, 40, 40)):
+        _kernels.launch(wrapper, lambda: 0, shape=shape)
+    assert wrapper.launches == 3
+    assert wrapper.shapes == {(30, 33, 33): 2, (7, 40, 40): 1}
+    with pytest.raises(RuntimeError):
+        _kernels.launch(wrapper, lambda: 700, shape=(1, 1, 1))
+    assert wrapper.launches == 3 and (1, 1, 1) not in wrapper.shapes
+    wrapper.shapes = None
+    _kernels.launch(wrapper, lambda: 0, shape=(7, 40, 40))
+    assert wrapper.launches == 4
+
+
+def test_device_sum_takes_phase2_times_per_shape():
+    """chip_smoke's path sums of kernels 1 and 2: launches x the device ms a
+    launch at each shape, as phase 2 measured it; a shape that phase 2 did
+    not time fails the run."""
+    import chip_smoke
+
+    def wrapper():
+        pass
+
+    wrapper.shapes = {(30000, 33, 33, 2): 3, (7500, 33, 33, 2): 1}
+    rec = chip_smoke.device_sum(wrapper, {"30000x33x33x2": 0.3,
+                                          "7500x33x33x2": 0.08, "1x1x1x2": 9})
+    assert wrapper.shapes is None
+    assert rec["launches"] == 4 and rec["timing"] == "device"
+    assert rec["ms_sum"] == pytest.approx(0.98)
+    assert rec["by_shape"]["30000x33x33x2"] == dict(
+        launches=3, ms_per_launch=0.3, ms_sum=pytest.approx(0.9))
+    wrapper.shapes = {(2, 5, 5, 2): 1}
+    with pytest.raises(AssertionError, match="did not time"):
+        chip_smoke.device_sum(wrapper, {"30000x33x33x2": 0.3})
+
+
+def test_kernel12_cases_cover_the_paths_launch_shapes():
+    """Phase 2's shapes of kernels 1 and 2 hold every shape the planar
+    suite's rules give, the stereo path's IC-GN shapes and its epipolar
+    chunk, each once."""
+    import chip_smoke
+    import opencorr_tpu_torch as ot
+
+    gathers, lattices = chip_smoke.kernel12_cases(ot)
+    g = [c[:3] for c in gathers]
+    lat = [(n, s, s, d) for n, s, d, _ in lattices]
+    assert len(set(g)) == len(g) and len(set(lat)) == len(lat)
+    suite_g, suite_l = chip_smoke.dic2d_launch_shapes(ot)
+    assert suite_g <= set(g) and suite_l <= set(lat)
+    n, side = chip_smoke.STEREO_POIS, 2 * chip_smoke.STEREO_EPI_R + 1
+    assert {(n, 33, 33), (n, 40, 40), (312, 48, 48),
+            (chip_smoke.epipolar_windows(ot), side, side)} <= set(g)
+    assert {(n, 33, 33, 2), (2500, 33, 33, 2), (312, 33, 33, 6)} <= set(lat)
+    assert {c[3] for c in gathers} == {"main", "gt4", "rotation"}
