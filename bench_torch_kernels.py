@@ -22,9 +22,10 @@ PyTorch version:
   host (``chip_smoke.launch_timing``).  Kernel 1 ``==`` the plain version;
   kernel 2 bit-equal across builds, within phase 2's gate of the plain
   version and exactly 0 out of range.  Beside them, the host us of a
-  wrapper call: the package's ``ops/gather2d.py`` / ``ops/lattice2d.py``
-  and, where ``DIR`` holds a file of that name, that wrapper (loaded into
-  the package beside its own, launching the package's build);
+  call of each build's C entry point and of a wrapper call: the
+  package's ``ops/gather2d.py`` / ``ops/lattice2d.py`` and, where ``DIR``
+  holds a file of that name, that wrapper (loaded into the package beside
+  its own, launching the package's build);
 
 * kernel 3 at one DVC chunk (ICGN3D1's auto chunk of the 5,733-POI queue
   at r=30, 441 x 61^3 on an 80 GB card), one SIFT-path chunk (of the
@@ -64,7 +65,8 @@ OTHER_R = 20
 
 def build_all(others, kernels):
     """{(kernel, build): typed C entry point}, one nvcc each, in parallel.
-    ``others`` maps a build's tag to a directory of sources."""
+    ``others`` maps a build's tag to a directory of sources; a header
+    that the directory lacks is taken from the package's ``csrc``."""
     from opencorr_tpu_torch.ops import (_kernels, desc3d, gather2d,
                                         lattice2d, lattice3d)
 
@@ -82,8 +84,9 @@ def build_all(others, kernels):
                 continue
             so = bdir / f"lib{k}-{tag}.so"
             procs.append((k, tag, so, subprocess.Popen(
-                [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(so),
-                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I",
+                 str(_kernels.CSRC), "-o", str(so), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
     for k, tag, so, proc in procs:
         log, _ = proc.communicate()
@@ -129,12 +132,16 @@ def load_wrappers(others, name, wrapper):
                 f"opencorr_tpu_torch.ops._{tag}_{name}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            out[tag] = getattr(mod, wrapper)
+            fn = getattr(mod, wrapper)
+            # an earlier wrapper may predate the per-shape launch count
+            fn.shapes = getattr(fn, "shapes", None)
+            out[tag] = fn
     return out
 
 
 def host_us(torch, cs, calls, reps=200):
-    """Host us a call of each wrapper, enqueued behind a sleep kernel."""
+    """Host us a call of each of ``calls``, enqueued behind a sleep
+    kernel."""
     return {t: cs.launch_timing(torch, c, reps)[1] for t, c in calls.items()}
 
 
@@ -181,6 +188,7 @@ def bench_gather(torch, cs, fns, wrappers, img, n, sh, sw, rng, reps):
                share_of_bound={b: bound / t for b, t in ms.items()},
                yardsticks=yardsticks(torch, cs, nbytes, n * sh * sw * 4,
                                      reps),
+               entry_host_us=host_us(torch, cs, calls),
                wrapper_host_us=host_us(torch, cs, {
                    t: (lambda f=f: f(img, y0, x0, sh=sh, sw=sw))
                    for t, f in wrappers.items()}))
@@ -226,6 +234,7 @@ def bench_lattice2d(torch, cs, fns, wrappers, n, s, d, exact, kind, rng,
                flops=flops, bound_ms=bound,
                share_of_bound={b: bound / t for b, t in ms.items()},
                yardsticks=yardsticks(torch, cs, nbytes, n * s * s * 4, reps),
+               entry_host_us=host_us(torch, cs, calls),
                wrapper_host_us=host_us(torch, cs, {
                    t: (lambda f=f: f(*args, d_wobble=d))
                    for t, f in wrappers.items()}))

@@ -51,8 +51,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    sub-pixel translation plus 0.5% strain, then ``save_table_2d``.  Launch
    counters are zeroed just before the timed run (after one warm-up run)
    and read just after it, kernels 1 and 2 counted per launch shape, their
-   device time from phase 2's (``device_sum``).  Checks convergence and
-   recovered displacement and strain against the imposed field.
+   time estimated from phase 2's device time (``device_sum``).  Checks
+   convergence and recovered displacement and strain against the imposed
+   field.
 4. The same modules on ``cuda`` and on ``cpu`` (the plain versions) on a
    2,000-POI subset, with every 8th seed displaced by 3 px so that the
    IC-GN windowed eval takes its D=6 correction branch: FFTCC u/v equal,
@@ -197,8 +198,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    within 1e-5 voxel), no kernel-3 launch, and 64 POIs at r=16 on ``cuda``
    and on ``cpu`` (codes equal, u/v/w within 1e-3 voxel).
 17. JSON lines: per-kernel records (each kernel's time per path,
-   ``path_ms``: kernels 1 and 2 launches x phase 2's device ms per launch
-   shape, kernels 3 and 4 CUDA events a launch), the stage times, and last
+   ``path_ms``: kernels 1 and 2 estimated, launches x phase 2's device ms
+   per launch shape, its ``timing`` saying so; kernels 3 and 4 CUDA events
+   a launch), the stage times, and last
    ``{"ok": true, "device": {...}}``.  The script refuses to start when
    ``OPENCORR_SIFT2D`` is set.
 """
@@ -355,17 +357,20 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def launch_timing(torch, call, reps: int, warm: int = 2):
+def launch_timing(torch, call, reps: int, warm: int = 2, rounds: int = 3):
     """Device ms and host us a call of ``call``, over ``reps`` calls
     enqueued while the stream waits behind a sleep kernel: the time between
     two events around them on the device, so that no launch waits on the
-    host, and the host's time to enqueue them.  Fails unless the sleep was
-    still running when the last call was enqueued."""
+    host, and the host's time to enqueue them; each the median of
+    ``rounds`` rounds (one round read a kernel of 43 us as 72).  Fails
+    unless the sleep was still running when a round's last call was
+    enqueued."""
     for _ in range(warm):
         call()
     torch.cuda.synchronize()
     cycles = 1 << 21
-    for _ in range(4):
+    device_ms, host_us = [], []
+    for _ in range(4 + rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
@@ -377,9 +382,13 @@ def launch_timing(torch, call, reps: int, warm: int = 2):
         end.record()
         ahead = not start.query()
         torch.cuda.synchronize()
-        if ahead:
-            return start.elapsed_time(end) / reps, host_s / reps * 1e6
-        cycles <<= 2
+        if not ahead:
+            cycles <<= 2
+            continue
+        device_ms.append(start.elapsed_time(end) / reps)
+        host_us.append(host_s / reps * 1e6)
+        if len(device_ms) == rounds:
+            return float(np.median(device_ms)), float(np.median(host_us))
     raise AssertionError("the host did not enqueue ahead of the device")
 
 
@@ -422,21 +431,32 @@ def true_uv(x, y, center):
     return SHIFT_X + STRAIN * (x - cx), SHIFT_Y + STRAIN * (y - cy)
 
 
-def event_ms(wrapper):
-    """Launch count and summed CUDA-event milliseconds of ``wrapper``'s
-    launches since its ``events`` list was set, in all and per launch
-    shape; stops the recording."""
-    ev, wrapper.events = wrapper.events, None
-    ms = [a.elapsed_time(b) for a, b, _ in ev]
+def by_shape_record(wrapper, ms_of, timing):
+    """Launch count and summed milliseconds of ``wrapper``'s launches since
+    its ``shapes`` dict was set, in all and per launch shape, the ms of
+    ``k`` launches at a shape being ``ms_of(shape, k)``; stops the
+    counting."""
+    shapes, wrapper.shapes = wrapper.shapes, None
     by_shape = {}
-    for t, (_, _, shape) in zip(ms, ev):
-        rec = by_shape.setdefault("x".join(map(str, shape)),
-                                  dict(launches=0, ms_sum=0.0))
-        rec["launches"] += 1
-        rec["ms_sum"] += t
-    return dict(launches=len(ms), ms_sum=sum(ms),
-                ms_per_launch=sum(ms) / len(ms) if ms else None,
-                by_shape=by_shape, timing="events")
+    for shape, k in shapes.items():
+        ms = ms_of(shape, k)
+        by_shape["x".join(map(str, shape))] = dict(
+            launches=k, ms_per_launch=ms / k, ms_sum=ms)
+    n = sum(shapes.values())
+    ms = sum(v["ms_sum"] for v in by_shape.values())
+    return dict(launches=n, ms_sum=ms, ms_per_launch=ms / n if n else None,
+                by_shape=by_shape, timing=timing)
+
+
+def event_ms(wrapper):
+    """``by_shape_record`` of kernel 3's or 4's launches since its
+    ``shapes`` dict and ``events`` list were set, each launch's ms from its
+    CUDA events; stops the recording."""
+    ev, wrapper.events = wrapper.events, None
+    ms = {}
+    for a, b, shape in ev:
+        ms[shape] = ms.get(shape, 0.0) + a.elapsed_time(b)
+    return by_shape_record(wrapper, lambda shape, k: ms[shape], "events")
 
 
 def merge_event_ms(recs):
@@ -456,24 +476,23 @@ def merge_event_ms(recs):
     return out
 
 
+# how ``device_sum`` records are timed: not on the path itself
+ESTIMATED = "estimated: launches x phase 2 device ms"
+
+
 def device_sum(wrapper, device_ms):
-    """Launch count and device milliseconds of kernel 1's or 2's launches
-    since ``wrapper.shapes`` was set, in all and per launch shape:
-    launches x the device ms a launch that phase 2 measured at that shape
-    (``device_ms``, by the shape as the wrapper records it); fails on a
-    shape that phase 2 did not time.  Stops the counting."""
-    shapes, wrapper.shapes = wrapper.shapes, None
-    by_shape = {}
-    for shape, k in shapes.items():
+    """``by_shape_record`` of kernel 1's or 2's launches since its
+    ``shapes`` dict was set, estimated: launches x the device ms a launch
+    that phase 2 measured at that shape (``device_ms``, by the shape as
+    the wrapper records it), on phase 2's inputs and not on the path's;
+    fails on a shape that phase 2 did not time."""
+    def ms_of(shape, k):
         key = "x".join(map(str, shape))
         check(key in device_ms, f"{wrapper.__name__} launched at {key}, "
               "which phase 2 did not time")
-        by_shape[key] = dict(launches=k, ms_per_launch=device_ms[key],
-                             ms_sum=k * device_ms[key])
-    n = sum(shapes.values())
-    ms = sum(v["ms_sum"] for v in by_shape.values())
-    return dict(launches=n, ms_sum=ms, ms_per_launch=ms / n if n else None,
-                by_shape=by_shape, timing="device")
+        return k * device_ms[key]
+
+    return by_shape_record(wrapper, ms_of, ESTIMATED)
 
 
 def epipolar_windows(ot):
@@ -1174,6 +1193,7 @@ def phase_dvc(torch, ot, ref, tar, tmpdir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lattice3d.lattice_eval_3d.launches = 0
+    lattice3d.lattice_eval_3d.shapes = {}
     lattice3d.lattice_eval_3d.events = []
     seeded, refined, out, ms, stats, fstats = run_dvc(
         torch, ot, ref, tar, pois, "cuda", out_dir=tmpdir)
@@ -1416,6 +1436,7 @@ def phase_sift(torch, ot, checked, tmpdir):
     wrappers = (desc3d.descriptor_hist, lattice3d.lattice_eval_3d)
     for fn in wrappers:
         fn.launches = 0
+        fn.shapes = {}
         fn.events = []
     prefix = os.path.join(tmpdir, "torus")
     info = {}
@@ -2071,7 +2092,7 @@ def phase_stereo(torch, ot, views, pts, truth, scene, device_ms, tmpdir):
     """The stereo path at GT4's size: the example's four phases, the
     triangulation, save_table_2ds and stereo strain, after a warm-up on the
     crop; kernels 1 and 2 counted per launch shape in the timed run, their
-    device time from phase 2's (``device_sum``)."""
+    time estimated from phase 2's device time (``device_sum``)."""
     from opencorr_tpu_torch.examples import stereo_3d_dic_epipolar_sift as ex
     from opencorr_tpu_torch.examples import stereo_strain
     from opencorr_tpu_torch.ops import gather2d, lattice2d
@@ -2350,7 +2371,7 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
     """The seven workloads of ``examples/dic_2d.run`` on the card at the
     reference's sizes, after a warm-up of each on a small grid; kernels 1
     and 2 counted over the whole suite and per launch shape per workload,
-    their device time from phase 2's (``device_sum``).
+    their time estimated from phase 2's device time (``device_sum``).
     Checks every workload's gates, the fftcc_icgn1 table against phase
     3's, and that every launch shape is one phase 2 checked."""
     from opencorr_tpu_torch.examples import dic_2d
@@ -2473,6 +2494,7 @@ def phase_dvc_example(torch, ot, vref, vtar, dvc_refined, checked, tmpdir):
     prefix = os.path.join(tmpdir, "dvc_example")
     wrapper = lattice3d.lattice_eval_3d
     wrapper.launches = 0
+    wrapper.shapes = {}
     wrapper.events = []
     info = {}
     out, timer = dvc.run("fftcc_icgn1", *paths, csv_in, prefix, "cuda",
@@ -2546,6 +2568,7 @@ def phase_sharded(torch, ot, vref, vtar, dvc_seeded, dvc_refined, checked,
     torch.cuda.synchronize()
     wrapper = lattice3d.lattice_eval_3d
     wrapper.launches = 0
+    wrapper.shapes = {}
     wrapper.events = []
     m.stats.clear()
     t0 = time.perf_counter()
@@ -2619,8 +2642,9 @@ def phase_reconstruction(torch, ot, views, pts, truth, scene, checked,
                          device_ms, tmpdir):
     """``examples/reconstruction_epipolar.run(use_sift=True)`` on the
     GT4-size views of the reconstruction scene, after a warm-up on their
-    top-left 300x400 crop; kernel 1 counted per launch shape, its device
-    time from phase 2's (``device_sum``), every launch shape one of
+    top-left 300x400 crop; kernel 1 counted per launch shape, its time
+    estimated from phase 2's device time (``device_sum``), every launch
+    shape one of
     ``checked``.  Prints the fitted parallax, the
     epipolar reach of every truth from the fitted estimate (how many lie
     past the search's 6 px) and the stage times.  Gates: ZNCC > 0.9 on at
@@ -2843,6 +2867,7 @@ def phase_sift_host(torch, ot, checked, device_fa_codes, tmpdir,
     wrappers = (desc3d.descriptor_hist, lattice3d.lattice_eval_3d)
     for fn in wrappers:
         fn.launches = 0
+        fn.shapes = {}
         fn.events = []
     info = {}
     with Kernel4Layers(tmodel.SIFT3D) as layers_k4:
@@ -3500,8 +3525,8 @@ def main() -> int:
             "stage_ms"]["icgn3d1"])}))
 
     # phase 17: the records
-    # kernels 3 and 4: CUDA events a launch; kernels 1 and 2: phase 2's
-    # device ms a launch x launches, per shape
+    # kernels 3 and 4: CUDA events a launch; kernels 1 and 2 estimated:
+    # phase 2's device ms a launch x launches, per shape (``ESTIMATED``)
     path_ms = {"2d": main_res["kernel_device_ms"],
                "dvc": dvc_res["kernel_event_ms"],
                "sift": sift_res["kernel_event_ms"],

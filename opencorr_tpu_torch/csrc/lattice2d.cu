@@ -40,12 +40,13 @@
 // budgets exist only for the TPU's vector layout and have no counterpart
 // here.  Every product and sum is rounded separately (no FMA contraction),
 // in the order of the plain PyTorch version, so the two agree to the last
-// bit on the same inputs.  Each csrc/*.cu stands alone (the mbarrier and
-// bulk-copy helpers repeat lattice3d.cu's) so that any one builds from a
-// copied directory.
+// bit on the same inputs.  The mbarrier and bulk-copy helpers are
+// bulk_copy.cuh's, shared with lattice3d.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -74,49 +75,10 @@ __device__ __forceinline__ float tap_weight(float f, int t) {
   return __fadd_rn(kBC[3][t], acc);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The barrier's one arrival, expecting ``bytes`` of copies to complete on it.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// One bulk copy of ``bytes`` (a multiple of 16, both ends 16-aligned) from
-// global to shared memory, completing on ``bar``.
-__device__ __forceinline__ void bulk_copy(float* dst, uintptr_t src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // The 16-byte granules that hold ``count`` floats from ``p``: start, bytes.
-__device__ __forceinline__ uintptr_t granule(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)15;
+__device__ __forceinline__ const void* granule(const void* p) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~(uintptr_t)15);
 }
 __device__ __forceinline__ uint32_t granule_bytes(const void* p, int count) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
@@ -252,31 +214,12 @@ lattice2d_kernel(const float* __restrict__ eblk,
 }
 
 // Blocks an SM holds at ``threads`` and ``smem``, and the SM count, on the
-// current device: asked of the runtime once a (kernel, device, threads,
-// smem) and kept in a small table, so that a launch spends no host time
-// on it.
+// current device.
 cudaError_t per_sm_blocks(const void* kernel, int threads, size_t smem,
                           int* per_sm, int* sms) {
-  struct Entry {
-    const void* kernel;
-    int dev, threads, per_sm, sms;
-    size_t smem;
-  };
-  constexpr int kEntries = 32;
-  static Entry table[kEntries];
-  static int used = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  for (int k = 0; k < used && k < kEntries; ++k) {
-    const Entry& x = table[k];
-    if (x.kernel == kernel && x.dev == dev && x.threads == threads &&
-        x.smem == smem) {
-      *per_sm = x.per_sm;
-      *sms = x.sms;
-      return cudaSuccess;
-    }
-  }
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kSmemBudget);
@@ -286,10 +229,7 @@ cudaError_t per_sm_blocks(const void* kernel, int threads, size_t smem,
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
-  table[used % kEntries] = Entry{kernel, dev, threads, *per_sm, *sms, smem};
-  ++used;
-  return cudaSuccess;
+  return *per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 }  // namespace

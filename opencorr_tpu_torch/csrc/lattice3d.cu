@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 // Threads a block at most, and blocks an SM aimed for.
@@ -88,42 +90,6 @@ __device__ __forceinline__ void basis(float d, float b[4]) {
   b[3] = __fmul_rn(kSixth, __fmul_rn(__fmul_rn(d, d), d));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One bulk copy of ``bytes`` (a multiple of 16, both ends 16-aligned) from
-// global to shared memory, completing on ``bar``.
-__device__ __forceinline__ void bulk_load(float* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 lattice3d_kernel(const float* __restrict__ eblk,
                  const int32_t* __restrict__ dz,
@@ -163,7 +129,8 @@ lattice3d_kernel(const float* __restrict__ eblk,
     const uintptr_t a0 = a & ~(uintptr_t)15;
     const uintptr_t a1 = (a + span + 15u) & ~(uintptr_t)15;
     const int slot = q % g.ring;
-    bulk_load(ring + slot * g.stride, reinterpret_cast<const void*>(a0),
+    mbar_expect(&bars[slot], (uint32_t)(a1 - a0));
+    bulk_copy(ring + slot * g.stride, reinterpret_cast<const void*>(a0),
               (uint32_t)(a1 - a0), &bars[slot]);
   };
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``.  A library is built at first use,
 from the sources in the package only, into ``_build/`` under a file name
-keyed on a hash of its source, so an edited kernel is rebuilt and an
-unchanged one is reused.  :func:`build` compiles several kernels at once,
-one ``nvcc`` process each.
+keyed on a hash of its source and of the ``csrc`` headers it includes, so
+an edited kernel is rebuilt and an unchanged one is reused.
+:func:`build` compiles several kernels at once, one ``nvcc`` process
+each.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,9 +47,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of kernel ``name``, keyed on its source and the
+    ``csrc`` headers it includes."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(text)
+    for header in re.findall(rb'#include "([^"]+)"', text):
+        digest.update((CSRC / header.decode()).read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -112,18 +118,18 @@ def on_device(device):
     return torch.cuda.device(device)
 
 
-def launch(wrapper, call, shape=None) -> None:
+def launch(wrapper, call, shape) -> None:
     """Run ``call``, one kernel launch through ctypes that returns a
-    cudaError_t code, raise on an error, and count it on ``wrapper``
-    (``wrapper.launches``).  While ``wrapper.shapes`` is a dict, the launch
-    is also counted there under ``shape`` (the launch's problem shape, as
-    the wrapper gives it).  While ``wrapper.events`` is a list, the launch
-    is bracketed by two CUDA events appended to it with ``shape`` as
-    (start, end, shape), so a caller can sum the kernel's event time over a
-    run, per shape; a pair also holds the host's launch latency whenever
-    the stream has run dry, so it overstates a kernel of a few
-    microseconds."""
-    events = wrapper.events
+    cudaError_t code, raise on an error, and count it on ``wrapper``:
+    in ``wrapper.launches``, and while ``wrapper.shapes`` is a dict, there
+    under ``shape`` (the launch's problem shape, as the wrapper gives it).
+    A wrapper with an ``events`` attribute can also be timed a launch:
+    while it is a list, the launch is bracketed by two CUDA events
+    appended to it with ``shape`` as (start, end, shape).  A pair holds
+    the host's launch latency whenever the stream has run dry, so it
+    overstates a kernel of a few microseconds; it serves kernels whose
+    launches take milliseconds."""
+    events = getattr(wrapper, "events", None)
     if events is not None:
         import torch
 
@@ -134,7 +140,6 @@ def launch(wrapper, call, shape=None) -> None:
     if events is not None:
         end.record()
         events.append((start, end, shape))
-    shapes = getattr(wrapper, "shapes", None)
-    if shapes is not None:
-        shapes[shape] = shapes.get(shape, 0) + 1
+    if wrapper.shapes is not None:
+        wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
     wrapper.launches += 1

@@ -320,8 +320,9 @@ def descriptor_hist(vol, starts, tab, rot, *, crop, scale, unit_xyz,
 
 
 descriptor_hist.launches = 0  # kernel launches, for run-level checks
-# a list: (start, end) CUDA events and the shape (k, crop z, y, x) of a
-# launch
+# a dict: launches by shape (k, crop z, y, x), counted while it is set
+descriptor_hist.shapes = None
+# a list: (start, end) CUDA events and the shape of a launch
 descriptor_hist.events = None
 
 

@@ -86,7 +86,5 @@ def gather_windows_2d(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
 
 
 gather_windows_2d.launches = 0  # kernel launches, for run-level checks
-# a list: (start, end) CUDA events and the shape (n, sh, sw) of a launch
-gather_windows_2d.events = None
 # a dict: launches by shape (n, sh, sw), counted while it is set
 gather_windows_2d.shapes = None

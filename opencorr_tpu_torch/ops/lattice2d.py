@@ -121,7 +121,5 @@ def lattice_eval_2d(eblk: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
 
 
 lattice_eval_2d.launches = 0  # kernel launches, for run-level checks
-# a list: (start, end) CUDA events and the shape (n, sy, sx, D) of a launch
-lattice_eval_2d.events = None
 # a dict: launches by shape (n, sy, sx, D), counted while it is set
 lattice_eval_2d.shapes = None

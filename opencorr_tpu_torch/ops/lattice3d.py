@@ -121,6 +121,7 @@ def lattice_eval_3d(eblk: torch.Tensor, dz: torch.Tensor, dy: torch.Tensor,
 
 
 lattice_eval_3d.launches = 0  # kernel launches, for run-level checks
-# a list: (start, end) CUDA events and the shape (n, sz, sy, sx, D) of a
-# launch
+# a dict: launches by shape (n, sz, sy, sx, D), counted while it is set
+lattice_eval_3d.shapes = None
+# a list: (start, end) CUDA events and the shape of a launch
 lattice_eval_3d.events = None

@@ -215,7 +215,7 @@ def main() -> int:
                           if any(p in k for p in PORT_KERNELS)})
     for name, rec in out.items():
         print(json.dumps({"stage": name, "pois": pois.n, **rec}), flush=True)
-    print(json.dumps(info), flush=True)
+    print(json.dumps(info, default=lambda o: o.tolist()), flush=True)
     print(cs.card_line(), flush=True)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0

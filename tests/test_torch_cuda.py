@@ -191,8 +191,10 @@ def test_gather_kernel_unaligned_inputs(cuda):
     (2, 3, 7),
     (2, 2500, 33),  # N above the grid, 1,089 samples a POI
     (2, 4001, 25),
-    (6, 940, 33),  # D=6: a POI's ring slot does not fit, two bands a POI
+    (6, 940, 33),  # D=6: three slots of a whole POI do not fit, two do
     (6, 1313, 25),
+    (2, 300, 45),  # not even two slots fit: bands of rows in three slots
+    (6, 200, 41),
     (1, 600, 9),
     (2, 50, (9, 31)),  # sy != sx
     (2, 9, 32),  # even sides: POI blocks off the 16-byte grid
@@ -201,7 +203,9 @@ def test_lattice_kernel_edge_shapes(cuda, d, n, s):
     """Kernel 2 ``==`` its plain version, and exactly 0 where an offset is
     out of range, where the persistent blocks, the ring of staged items and
     the bands of rows meet odd shapes: samples a POI not a multiple of 4,
-    N = 1, N below and above the grid, D = 1, 2 and 6."""
+    N = 1, N below and above the grid, D = 1, 2 and 6, rings of three and
+    of two whole POIs, and POIs split into bands because one does not fit
+    a slot."""
     arrs = [torch.from_numpy(a).to(cuda)
             for a in _lattice_inputs(n, s, d, seed=n + d)]
     before = lattice2d.lattice_eval_2d.launches

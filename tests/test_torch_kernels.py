@@ -97,7 +97,7 @@ def test_launch_counts_shapes():
     def wrapper():
         pass
 
-    wrapper.launches, wrapper.events, wrapper.shapes = 0, None, {}
+    wrapper.launches, wrapper.shapes = 0, {}
     for shape in ((30, 33, 33), (30, 33, 33), (7, 40, 40)):
         _kernels.launch(wrapper, lambda: 0, shape=shape)
     assert wrapper.launches == 3
@@ -123,13 +123,45 @@ def test_device_sum_takes_phase2_times_per_shape():
     rec = chip_smoke.device_sum(wrapper, {"30000x33x33x2": 0.3,
                                           "7500x33x33x2": 0.08, "1x1x1x2": 9})
     assert wrapper.shapes is None
-    assert rec["launches"] == 4 and rec["timing"] == "device"
+    assert rec["launches"] == 4 and rec["timing"] == chip_smoke.ESTIMATED
+    assert rec["timing"].startswith("estimated")
     assert rec["ms_sum"] == pytest.approx(0.98)
     assert rec["by_shape"]["30000x33x33x2"] == dict(
         launches=3, ms_per_launch=0.3, ms_sum=pytest.approx(0.9))
     wrapper.shapes = {(2, 5, 5, 2): 1}
     with pytest.raises(AssertionError, match="did not time"):
         chip_smoke.device_sum(wrapper, {"30000x33x33x2": 0.3})
+
+
+def test_event_ms_sums_events_per_counted_shape():
+    """chip_smoke's path sums of kernels 3 and 4: launches per shape from
+    the wrapper's ``shapes`` count, ms summed from each launch's events;
+    both recordings stop."""
+    import chip_smoke
+
+    class Event:
+        def __init__(self, t):
+            self.t = t
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    def wrapper():
+        pass
+
+    wrapper.shapes = {(441, 61, 61, 61, 1): 2, (9, 33, 33, 33, 1): 1}
+    wrapper.events = [(Event(0.0), Event(1.5), (441, 61, 61, 61, 1)),
+                      (Event(2.0), Event(2.25), (9, 33, 33, 33, 1)),
+                      (Event(3.0), Event(4.75), (441, 61, 61, 61, 1))]
+    rec = chip_smoke.event_ms(wrapper)
+    assert wrapper.shapes is None and wrapper.events is None
+    assert rec["launches"] == 3 and rec["timing"] == "events"
+    assert rec["ms_sum"] == pytest.approx(3.5)
+    assert rec["by_shape"]["441x61x61x61x1"] == dict(
+        launches=2, ms_per_launch=pytest.approx(1.625),
+        ms_sum=pytest.approx(3.25))
+    merged = chip_smoke.merge_event_ms([{"k": rec}, {"k": rec}])["k"]
+    assert merged["launches"] == 6 and merged["ms_sum"] == pytest.approx(7.0)
 
 
 def test_kernel12_cases_cover_the_paths_launch_shapes():
