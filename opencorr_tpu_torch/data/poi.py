@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.precision import DeviceLike, resolve_device
 
 # Indices into the 2D deformation vector p[12].
@@ -88,9 +89,11 @@ class POITable2D:
         return type(self)(*(fn(getattr(self, f)) for f in self.FIELDS))
 
     def xy_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Host float32 copies of x and y, read back once per table."""
+        """Host float32 copies of x and y, read back once per table (the
+        host read ``poi.sync.coords``, ``utils/timing.host_read``)."""
         if self.host_xy is None:
-            self.host_xy = (self.x.cpu().numpy(), self.y.cpu().numpy())
+            self.host_xy = tuple(timing.host_read("poi.sync.coords", a)
+                                 for a in (self.x, self.y))
         return self.host_xy
 
     coords_numpy = xy_numpy
@@ -148,9 +151,10 @@ class POITable3D:
         return POITable3D(*(fn(getattr(self, f)) for f in self.FIELDS))
 
     def coords_numpy(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host float32 copies of x, y and z, read back once per table."""
+        """Host float32 copies of x, y and z, read back once per table
+        (the host read ``poi.sync.coords``)."""
         if self.host_xyz is None:
-            self.host_xyz = tuple(a.cpu().numpy()
+            self.host_xyz = tuple(timing.host_read("poi.sync.coords", a)
                                   for a in (self.x, self.y, self.z))
         return self.host_xyz
 

@@ -112,9 +112,9 @@ def run(workload: str, ref=None, tar=None, out_prefix: Optional[str] = None,
     (default: its seeded generator's).  ``stats``, a dict, receives the
     modules' branch counts, the SIFT2D octave counts and matched
     keypoints, FeatureAffine2D's codes, the self-adaptive r_max, which table writer ran and the table
-    writes' seconds.  A profiler sees each stage as the range
-    ``stage:<name>`` (:class:`StageTimer`).  Returns (the result table, the
-    StageTimer)."""
+    writes' seconds.  Each stage is the span ``oc:<name>``
+    (:class:`StageTimer`), recorded only under ``torch.profiler``.
+    Returns (the result table, the StageTimer)."""
     if workload not in WORKLOADS:
         raise ValueError(f"unknown workload {workload!r}; one of "
                          f"{', '.join(WORKLOADS)}")

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import contextlib
 import sys
-import time
 from typing import Optional
 
 import numpy as np
@@ -33,6 +32,7 @@ from ..models.icgn import ICGN2D1, ICGN2D2
 from ..models.sift2d import SIFT2D
 from ..models.stereovision import Stereovision
 from ..utils.precision import DeviceLike, resolve_device
+from ..utils.timing import StageTimer
 
 
 def gt4_cameras(device: DeviceLike = None):
@@ -91,18 +91,16 @@ def run(ref_view1, ref_view2, tar_view1, tar_view2, pts, cam1: Calibration,
     dev = resolve_device(device)
     pts = np.asarray(pts, np.float32).reshape(-1, 2)
     h, w = np.asarray(getattr(ref_view1, "mat", ref_view1)).shape[:2]
-    timings = {}
+    timer = StageTimer()
 
     @contextlib.contextmanager
     def stage(name):
-        """Time a phase to its device synchronisation; a profiler sees it
-        as the range ``stage:<name>``."""
-        t0 = time.perf_counter()
-        with torch.profiler.record_function(f"stage:{name}"):
+        """A stage of the timer, closed by the device's
+        synchronisation."""
+        with timer.stage(name):
             yield
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-        timings[name] = time.perf_counter() - t0
 
     cam1.prepare(h, w)
     cam2.prepare(h, w)
@@ -200,7 +198,7 @@ def run(ref_view1, ref_view2, tar_view1, tar_view2, pts, cam1: Calibration,
     if out_path is not None:
         with stage("save_table_2ds"):
             io_table.save_table_2ds(out_path, result)
-    return result, timings
+    return result, dict(zip(timer.names, timer.seconds))
 
 
 if __name__ == "__main__":

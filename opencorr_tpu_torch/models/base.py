@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..data.poi import POITable2D, POITable3D
+from ..utils import timing
 from ..utils.precision import DeviceLike, resolve_device
 
 # ZNCC failure codes (oc_dic.h:28-34).
@@ -88,7 +89,10 @@ def upload(img, device: torch.device) -> torch.Tensor:
 
 
 class Module2D:
-    """Base for 2D modules: image state + subset radii (oc_dic.h:43-64)."""
+    """Base for 2D modules: image state + subset radii (oc_dic.h:43-64).
+    ``layer`` names the module's spans and counters (``utils/timing``)."""
+
+    layer = "module"
 
     def __init__(self, subset_radius_x: int, subset_radius_y: int,
                  device: DeviceLike = None):
@@ -103,8 +107,9 @@ class Module2D:
         return upload(img, self.device)
 
     def set_images(self, ref_img, tar_img) -> None:
-        self.ref_img = self._upload(ref_img)
-        self.tar_img = self._upload(tar_img)
+        with timing.span(self.layer + ".upload"):
+            self.ref_img = self._upload(ref_img)
+            self.tar_img = self._upload(tar_img)
 
     def set_subset_radii(self, rx: int, ry: int) -> None:
         self.subset_radius_x = int(rx)

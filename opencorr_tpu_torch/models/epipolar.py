@@ -34,6 +34,8 @@ class EpipolarSearch(base.Module2D):
     """``chunk_size`` bounds the candidate queue: a chunk holds
     max(256, chunk_size // n_candidates) POIs."""
 
+    layer = "epipolar"
+
     def __init__(self, view1_cam: Calibration, view2_cam: Calibration,
                  chunk_size: Optional[int] = 16384,
                  device=None):

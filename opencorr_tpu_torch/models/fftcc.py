@@ -10,6 +10,7 @@ import torch
 
 from ..data import poi as poi_mod
 from ..ops import fftcc as fftcc_ops
+from ..utils import timing
 from ..utils.precision import DeviceLike
 from . import base
 
@@ -20,6 +21,8 @@ class FFTCC2D(base.Module2D):
     Replaces the reference's per-thread FFTW pool and OpenMP loop
     (oc_fftcc.cpp:151-285) with one batched FFT over the POI queue.
     ``stats`` counts the exact re-rank branches of every compute."""
+
+    layer = "fftcc"
 
     def __init__(self, subset_radius_x: int, subset_radius_y: int,
                  chunk_size: Optional[int] = 65536,
@@ -36,7 +39,8 @@ class FFTCC2D(base.Module2D):
             p, r = t.p, t.r
             u, v, zncc, valid = fftcc_ops.fftcc2d(
                 self.ref_img, self.tar_img, t.x, t.y, p[:, poi_mod.U],
-                p[:, poi_mod.V], rx=rx, ry=ry, stats=self.stats)
+                p[:, poi_mod.V], rx=rx, ry=ry, stats=self.stats,
+                layer=self.layer)
             p_new = p.clone()
             p_new[:, poi_mod.U] = u
             p_new[:, poi_mod.V] = v
@@ -48,13 +52,16 @@ class FFTCC2D(base.Module2D):
                 r_new[:, col] = torch.where(valid, val, r[:, col])
             return t.replace(p=p_new, r=r_new)
 
-        return base.chunked(run, table, self.chunk_size)
+        with timing.computing(self.layer, self.stats):
+            return base.chunked(run, table, self.chunk_size)
 
 
 class FFTCC3D(base.Module3D):
     """3D FFTCC for DVC (oc_fftcc.cpp:300-437): one batched ``rfftn`` per
     chunk of 512 POIs.  ``stats`` counts the chunks that ran the exact
     re-rank."""
+
+    layer = "fftcc"
 
     def __init__(self, subset_radius_x: int, subset_radius_y: int,
                  subset_radius_z: int, chunk_size: Optional[int] = 512,
@@ -75,7 +82,7 @@ class FFTCC3D(base.Module3D):
             *uvw, zncc, valid = fftcc_ops.fftcc3d(
                 self.ref_vol, self.tar_vol, t.x, t.y, t.z,
                 *(p[:, c] for c in cols), rx=rx, ry=ry, rz=rz,
-                stats=self.stats)
+                stats=self.stats, layer=self.layer)
             p_new = p.clone()
             for c, val in zip(cols, uvw):
                 p_new[:, c] = val
@@ -88,4 +95,5 @@ class FFTCC3D(base.Module3D):
                 r_new[:, col] = torch.where(valid, val, r[:, col])
             return t.replace(p=p_new, r=r_new)
 
-        return base.chunked(run, table, self.chunk_size)
+        with timing.computing(self.layer, self.stats):
+            return base.chunked(run, table, self.chunk_size)

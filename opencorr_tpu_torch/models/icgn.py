@@ -10,6 +10,7 @@ import torch
 
 from ..data import poi as poi_mod
 from ..ops import bspline, gradient, icgn as icgn_ops
+from ..utils import timing
 from ..utils.precision import DeviceLike
 from . import base
 
@@ -53,6 +54,7 @@ class Refiner2D(base.Module2D):
     takes the global LUT, as in the JAX package).  ``stats`` counts the
     eval branches and iterations of every compute."""
 
+    layer = "icgn"
     order = 1
 
     def __init__(self, subset_radius_x: int, subset_radius_y: int,
@@ -77,16 +79,27 @@ class Refiner2D(base.Module2D):
 
     def prepare_ref(self) -> None:
         """Gradient maps of the reference image (oc_icgn.cpp:115-125)."""
-        self._gx = gradient.gradient_x_2d(self.ref_img).contiguous()
-        self._gy = gradient.gradient_y_2d(self.ref_img).contiguous()
+        with timing.span(self.layer + ".gradient"):
+            self._gx = gradient.gradient_x_2d(self.ref_img).contiguous()
+            self._gy = gradient.gradient_y_2d(self.ref_img).contiguous()
 
     def prepare_tar(self) -> None:
         """B-spline LUT of the target image (oc_icgn.cpp:127-136)."""
-        self._lut = bspline.bicubic_prepare(self.tar_img)
+        with timing.span(self.layer + ".prefilter"):
+            self._lut = bspline.bicubic_prepare(self.tar_img)
 
     def prepare(self) -> None:
-        self.prepare_ref()
-        self.prepare_tar()
+        with timing.span(self.layer + ".prepare"):
+            self.prepare_ref()
+            self.prepare_tar()
+
+    def compute(self, table: poi_mod.POITable2D, *args, **kwargs
+                ) -> poi_mod.POITable2D:
+        """The refined table (the refiner's ``_compute``), under the span
+        ``<layer>.compute``; the call's ``stats`` go to the process's
+        counters."""
+        with timing.computing(self.layer, self.stats):
+            return self._compute(table, *args, **kwargs)
 
     def _ready(self, table) -> None:
         if self._lut is None:
@@ -117,7 +130,8 @@ class Refiner2D(base.Module2D):
         radius in ``table.sr`` (one host read), each with its own radii.
         ``refine(t, r_max)`` returns the refiner's outputs for a chunk; the
         chunk shrinks with the (2 r_max + 1)^2 grid."""
-        r_max = int(max(float(table.sr.max()), 1.0))
+        r_max = int(max(timing.host_read(f"{self.layer}.sync.radius",
+                                         table.sr.max(), float), 1.0))
         return base.chunked(lambda t: merge_2d(t, refine(t, r_max)), table,
                             base.budget_chunk(self.chunk_size, r_max, r_max))
 
@@ -132,9 +146,9 @@ class ICGN2D1(Refiner2D):
     After ``set_self_adaptive(True)`` each POI refines at its radii in
     ``table.sr`` (oc_icgn.cpp:152-158), through the global LUT."""
 
-    def compute(self, table: poi_mod.POITable2D,
-                center_offset: Optional[torch.Tensor] = None
-                ) -> poi_mod.POITable2D:
+    def _compute(self, table: poi_mod.POITable2D,
+                 center_offset: Optional[torch.Tensor] = None
+                 ) -> poi_mod.POITable2D:
         self._ready(table)
         conv, stop = self.conv_criterion, self.stop_condition
         if self.self_adaptive:
@@ -146,7 +160,7 @@ class ICGN2D1(Refiner2D):
                     self._gx, self._gy, self.ref_img, self._lut, t.x, t.y,
                     t.sr[:, 0], t.sr[:, 1], t.p, t.r[:, poi_mod.R_ZNCC],
                     conv, stop, order=self.order, r_max=r_max,
-                    stats=self.stats)))
+                    stats=self.stats, layer=self.layer)))
         rx, ry = self.subset_radius_x, self.subset_radius_y
         margin = self._margin()
 
@@ -156,7 +170,8 @@ class ICGN2D1(Refiner2D):
                 t.r[:, poi_mod.R_ZNCC], conv, stop, self.tar_img,
                 order=self.order, rx=rx, ry=ry,
                 center_offset=offs[0] if offs else None,
-                window_margin=margin, stats=self.stats), (rx, ry))
+                window_margin=margin, stats=self.stats, layer=self.layer),
+                (rx, ry))
 
         if center_offset is None:
             return self._fixed(run, table)
@@ -190,6 +205,8 @@ class ICGN3D1(base.Module3D):
     counts chunks, Gauss-Newton iterations, lattice launches and fallback
     iterations."""
 
+    layer = "icgn"
+
     def __init__(self, subset_radius_x: int, subset_radius_y: int,
                  subset_radius_z: int, conv_criterion: float = 0.001,
                  stop_condition: float = 10,
@@ -213,17 +230,20 @@ class ICGN3D1(base.Module3D):
 
     def prepare_ref(self) -> None:
         """Gradient volumes (oc_icgn.cpp:1240-1251)."""
-        self._gx = gradient.gradient_x_3d(self.ref_vol).contiguous()
-        self._gy = gradient.gradient_y_3d(self.ref_vol).contiguous()
-        self._gz = gradient.gradient_z_3d(self.ref_vol).contiguous()
+        with timing.span(self.layer + ".gradient"):
+            self._gx = gradient.gradient_x_3d(self.ref_vol).contiguous()
+            self._gy = gradient.gradient_y_3d(self.ref_vol).contiguous()
+            self._gz = gradient.gradient_z_3d(self.ref_vol).contiguous()
 
     def prepare_tar(self) -> None:
         """Prefiltered tricubic coefficient volume (oc_icgn.cpp:1253-1262)."""
-        self._coeff = bspline.tricubic_prepare(self.tar_vol).contiguous()
+        with timing.span(self.layer + ".prefilter"):
+            self._coeff = bspline.tricubic_prepare(self.tar_vol).contiguous()
 
     def prepare(self) -> None:
-        self.prepare_ref()
-        self.prepare_tar()
+        with timing.span(self.layer + ".prepare"):
+            self.prepare_ref()
+            self.prepare_tar()
 
     def auto_chunk(self, n: int) -> int:
         """POIs per chunk for a queue of ``n``: as few chunks as the
@@ -238,6 +258,10 @@ class ICGN3D1(base.Module3D):
         return -(-n // -(-n // most)) if n else most
 
     def compute(self, table: poi_mod.POITable3D) -> poi_mod.POITable3D:
+        with timing.computing(self.layer, self.stats):
+            return self._compute(table)
+
+    def _compute(self, table: poi_mod.POITable3D) -> poi_mod.POITable3D:
         if self._coeff is None:
             raise RuntimeError("call prepare() before compute()")
         self._check_table(table)
@@ -253,12 +277,14 @@ class ICGN3D1(base.Module3D):
         radii = (float(rx), float(ry), float(rz))
 
         def run(t):
-            p_out, u0, v0, w0, zncc, it, dpn, computed = icgn_ops.icgn3d1(
-                self._gx, self._gy, self._gz, self.ref_vol, self._coeff,
-                t.x, t.y, t.z, t.p, t.r[:, poi_mod.R3_ZNCC],
-                self.conv_criterion, self.stop_condition, rx=rx, ry=ry,
-                rz=rz, window_margin=margin, eval_mode=self.eval_mode,
-                stats=self.stats)
+            with timing.span(self.layer + ".chunk"):
+                out = icgn_ops.icgn3d1(
+                    self._gx, self._gy, self._gz, self.ref_vol, self._coeff,
+                    t.x, t.y, t.z, t.p, t.r[:, poi_mod.R3_ZNCC],
+                    self.conv_criterion, self.stop_condition, rx=rx, ry=ry,
+                    rz=rz, window_margin=margin, eval_mode=self.eval_mode,
+                    stats=self.stats, layer=self.layer)
+            p_out, u0, v0, w0, zncc, it, dpn, computed = out
             r = t.r.clone()
             r[:, poi_mod.R3_ZNCC] = zncc
             for col, val in ((poi_mod.R3_U0, u0), (poi_mod.R3_V0, v0),

@@ -15,6 +15,8 @@ class ICLM2D1(Refiner2D):
     After ``set_self_adaptive(True)`` each POI refines at its radii in
     ``table.sr`` (oc_iclm.cpp:158-164), through the global LUT."""
 
+    layer = "iclm"
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.damping_lambda = 100.0
@@ -27,7 +29,7 @@ class ICLM2D1(Refiner2D):
         self.damping_alpha = float(alpha)
         self.damping_beta = float(beta)
 
-    def compute(self, table: poi_mod.POITable2D) -> poi_mod.POITable2D:
+    def _compute(self, table: poi_mod.POITable2D) -> poi_mod.POITable2D:
         self._ready(table)
         conv, stop = self.conv_criterion, self.stop_condition
         damping = (self.damping_lambda, self.damping_alpha,
@@ -38,7 +40,7 @@ class ICLM2D1(Refiner2D):
                     self._gx, self._gy, self.ref_img, self._lut, t.x, t.y,
                     t.sr[:, 0], t.sr[:, 1], t.p, t.r[:, poi_mod.R_ZNCC],
                     conv, stop, damping, order=self.order, r_max=r_max,
-                    stats=self.stats)))
+                    stats=self.stats, layer=self.layer)))
         rx, ry = self.subset_radius_x, self.subset_radius_y
         margin = self._margin()
 
@@ -47,7 +49,7 @@ class ICLM2D1(Refiner2D):
                 self._gx, self._gy, self.ref_img, self._lut, t.x, t.y, t.p,
                 t.r[:, poi_mod.R_ZNCC], conv, stop, damping, self.tar_img,
                 order=self.order, rx=rx, ry=ry, window_margin=margin,
-                stats=self.stats), (rx, ry))
+                stats=self.stats, layer=self.layer), (rx, ry))
 
         return self._fixed(run, table)
 

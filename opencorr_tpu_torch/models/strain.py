@@ -11,6 +11,7 @@ import torch
 
 from ..data import poi as poi_mod
 from ..ops import strain as strain_ops
+from ..utils import timing
 from ..utils.precision import DeviceLike, resolve_device
 from . import base
 
@@ -30,8 +31,11 @@ class Strain:
       on the device.
 
     The coordinates are copied to the host once per table (cached on the
-    table) for the neighbor search.
+    table) for the neighbor search.  ``layer`` names the spans
+    (``utils/timing``).
     """
+
+    layer = "strain"
 
     def __init__(self, subregion_radius: float = 20.0,
                  neighbor_number_min: int = 5,
@@ -116,20 +120,30 @@ class Strain:
         for ref, p, data in self._cache:
             if p == params and ref() is table.x:
                 return data
-        coords = table.coords_numpy()
-        grid_fn = self._grid_2d if len(coords) == 2 else self._grid_3d
-        grid = grid_fn(*coords, table.device)
-        data = (("grid", grid) if grid is not None else
-                ("kdtree", self._neighbors(np.stack(coords, axis=-1),
-                                           table.device)))
+        with timing.span(self.layer + ".neighbors"):
+            coords = table.coords_numpy()
+            grid_fn = self._grid_2d if len(coords) == 2 else self._grid_3d
+            grid = grid_fn(*coords, table.device)
+            data = (("grid", grid) if grid is not None else
+                    ("kdtree", self._neighbors(np.stack(coords, axis=-1),
+                                               table.device)))
         self._cache.append((weakref.ref(table.x), params, data))
         if len(self._cache) > 8:
             self._cache.pop(0)
         return data
 
+    def _fit(self, run, table, chunk: int, *extras):
+        """``base.chunked`` of the fit, in the span ``<layer>.fit``."""
+        with timing.span(self.layer + ".fit"):
+            return base.chunked(run, table, chunk, *extras)
+
     def compute(self, table):
         """Strain of a 2D (exx, eyy, exy), stereo or 3D (exx, eyy, ezz,
-        exy, eyz, ezx) table."""
+        exy, eyz, ezx) table, in the span ``<layer>.compute``."""
+        with timing.span(self.layer + ".compute"):
+            return self._compute(table)
+
+    def _compute(self, table):
         if not isinstance(table, (poi_mod.POITable2D, poi_mod.POITable2DS,
                                   poi_mod.POITable3D)):
             raise TypeError(f"Strain: {type(table).__name__} is no POI "
@@ -159,8 +173,8 @@ class Strain:
                     t.e, iy_c, ix_c, lookup, di, dj, **args)
                 return t.replace(e=e)
 
-            return base.chunked(run_g, table, self._chunk(di.shape[0]),
-                                iy, ix)
+            return self._fit(run_g, table, self._chunk(di.shape[0]),
+                             iy, ix)
 
         nb_idx, nb_ok, use_radius = data
 
@@ -170,8 +184,8 @@ class Strain:
                 idx_c, ok_c, ur_c, **args)
             return t.replace(e=e)
 
-        return base.chunked(run, table, self._chunk(nb_idx.shape[1]),
-                            nb_idx, nb_ok, use_radius)
+        return self._fit(run, table, self._chunk(nb_idx.shape[1]),
+                         nb_idx, nb_ok, use_radius)
 
     def _compute_3d(self, table: poi_mod.POITable3D) -> poi_mod.POITable3D:
         """DVC strain (oc_strain.cpp:372-472): grid stencil or k-d tree."""
@@ -195,8 +209,8 @@ class Strain:
                                              ix_c, lookup, dk, di, dj, **args)
                 return t.replace(e=e)
 
-            return base.chunked(run_g, table, self._chunk(dk.shape[0]), iz,
-                                iy, ix)
+            return self._fit(run_g, table, self._chunk(dk.shape[0]), iz,
+                             iy, ix)
 
         nb_idx, nb_ok, use_radius = data
 
@@ -205,8 +219,8 @@ class Strain:
                                     **args)
             return t.replace(e=e)
 
-        return base.chunked(run, table, self._chunk(nb_idx.shape[1]),
-                            nb_idx, nb_ok, use_radius)
+        return self._fit(run, table, self._chunk(nb_idx.shape[1]),
+                         nb_idx, nb_ok, use_radius)
 
     def _compute_2ds(self, table: poi_mod.POITable2DS
                      ) -> poi_mod.POITable2DS:
@@ -234,8 +248,8 @@ class Strain:
                                               lookup, di, dj, **args)
                 return t.replace(e=e)
 
-            return base.chunked(run_g, table, self._chunk(di.shape[0]), iy,
-                                ix)
+            return self._fit(run_g, table, self._chunk(di.shape[0]), iy,
+                             ix)
 
         nb_idx, nb_ok, use_radius = data
 
@@ -244,5 +258,5 @@ class Strain:
                                      **args)
             return t.replace(e=e)
 
-        return base.chunked(run, table, self._chunk(nb_idx.shape[1]),
-                            nb_idx, nb_ok, use_radius)
+        return self._fit(run, table, self._chunk(nb_idx.shape[1]),
+                         nb_idx, nb_ok, use_radius)

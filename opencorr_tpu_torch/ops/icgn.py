@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import timing
 from . import bspline, linalg as linalg_ops, warp as warp_ops
 from .gather2d import gather_windows_2d, gather_windows_2d_plain
 from .lattice2d import lattice_eval_2d
@@ -72,7 +73,7 @@ def _put(full: torch.Tensor, si: torch.Tensor, vals: torch.Tensor
 
 def make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed, *, rx, ry,
                                margin, stats: Optional[collections.Counter]
-                               = None):
+                               = None, layer: str = "icgn"):
     """Windowed-lattice interpolation for the iterative refiners.
 
     ``img``/``lut``: the image being sampled and its exact per-pixel LUT
@@ -83,6 +84,9 @@ def make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed, *, rx, ry,
     ``eval_fn(state, gxc, gyc, active) -> [N', S]`` evaluates with the -1
     out-of-range sentinel; samples leaving their (r+margin) window read as
     out of range.  ``stats``, when given, counts the branches taken.
+    ``layer``: the calling refiner's family, which names the spans and host
+    reads (``<layer>.eval``, ``.correct``, ``.exact``, ``.sync.wobble``,
+    ``.sync.still``).
     """
     dev = img.device
     h, w = img.shape
@@ -128,6 +132,9 @@ def make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed, *, rx, ry,
     e6x, e6y = sw + w6 - 1, sh + w6 - 1
     cidx = (sh // 2) * sw + sw // 2
     count = stats if stats is not None else collections.Counter()
+    s_eval, s_correct, s_exact, s_wobble, s_still = (
+        f"{layer}.{k}" for k in ("eval", "correct", "exact", "sync.wobble",
+                                 "sync.still"))
 
     def _correct(val, gxc, gyc, oob, wob_poi, cap):
         """Re-centered D=6 lattice eval on a compacted subset of the wobbled
@@ -156,76 +163,84 @@ def make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed, *, rx, ry,
         still = torch.any(
             ((pdx < 0) | (pdx > 2 * D6) | (pdy < 0) | (pdy > 2 * D6))
             & ~oob_c, dim=1) & okc
-        ns = int(still.sum())
+        ns = timing.host_read(s_still, still.sum(), int)
         caps = min(cap, 64)
         if ns > caps:
             count["exact_all"] += 1
-            tv, _ = bspline.bicubic_eval(lut, gxq, gyq)
-            v6 = torch.where(still[:, None], tv, v6)
+            with timing.span(s_exact):
+                tv, _ = bspline.bicubic_eval(lut, gxq, gyq)
+                v6 = torch.where(still[:, None], tv, v6)
         elif ns > 0:
             count["exact"] += 1
-            gj, sj, _okj = compact_idx(still, caps)
-            tv, _ = bspline.bicubic_eval(lut, gxq[gj], gyq[gj])
-            v6 = _put(v6, sj, tv)
+            with timing.span(s_exact):
+                gj, sj, _okj = compact_idx(still, caps)
+                tv, _ = bspline.bicubic_eval(lut, gxq[gj], gyq[gj])
+                v6 = _put(v6, sj, tv)
         v6 = torch.where(oob_c, torch.full_like(v6, -1.0), v6)
         return _put(val, si, v6)
 
     def eval_fn(st, gxc, gyc, active):
-        n = gxc.shape[0]
-        cap = min(n, cap0)
-        wcxf = st["wcxf"][:, None]
-        wcyf = st["wcyf"][:, None]
-        # global range guard: the exact float comparisons of the LUT path
-        oob_g = ((gxc < 1) | (gyc < 1) | (gxc >= w - 2) | (gyc >= h - 2)
-                 | torch.isnan(gxc) | torch.isnan(gyc))
-        two = torch.full((), 2.0, dtype=_F32, device=dev)
-        lx = torch.where(oob_g, two, gxc - wcxf)
-        ly = torch.where(oob_g, two, gyc - wcyf)
-        exf = torch.floor(lx.clamp(-9.0, swx + 9.0)).to(_I32)
-        eyf = torch.floor(ly.clamp(-9.0, swy + 9.0)).to(_I32)
-        oob = (oob_g | (exf < 1) | (exf > swx - 3)
-               | (eyf < 1) | (eyf > swy - 3))
-        fxf = lx - exf.to(_F32)
-        fyf = ly - eyf.to(_F32)
-        neg = torch.full((), -1, dtype=_I32, device=dev)
-        pdx = torch.where(
-            oob, neg, exf + pw - 1 - st["bx0"][:, None] - iixf[None, :])
-        pdy = torch.where(
-            oob, neg, eyf + pw - 1 - st["by0"][:, None] - iiyf[None, :])
-        doomed = torch.any(oob, dim=1)
-        # only active POIs need exact values: a frozen POI's values are
-        # discarded by the step mask
-        wobble = (((pdx < 0) | (pdx > 2 * D) | (pdy < 0) | (pdy > 2 * D))
-                  & ~oob & (~doomed & active)[:, None])
-        wob_poi = torch.any(wobble, dim=1)
-        n_wob = int(wob_poi.sum())
+        with timing.span(s_eval):
+            n = gxc.shape[0]
+            cap = min(n, cap0)
+            wcxf = st["wcxf"][:, None]
+            wcyf = st["wcyf"][:, None]
+            # global range guard: the exact float comparisons of the LUT path
+            oob_g = ((gxc < 1) | (gyc < 1) | (gxc >= w - 2) | (gyc >= h - 2)
+                     | torch.isnan(gxc) | torch.isnan(gyc))
+            two = torch.full((), 2.0, dtype=_F32, device=dev)
+            lx = torch.where(oob_g, two, gxc - wcxf)
+            ly = torch.where(oob_g, two, gyc - wcyf)
+            exf = torch.floor(lx.clamp(-9.0, swx + 9.0)).to(_I32)
+            eyf = torch.floor(ly.clamp(-9.0, swy + 9.0)).to(_I32)
+            oob = (oob_g | (exf < 1) | (exf > swx - 3)
+                   | (eyf < 1) | (eyf > swy - 3))
+            fxf = lx - exf.to(_F32)
+            fyf = ly - eyf.to(_F32)
+            neg = torch.full((), -1, dtype=_I32, device=dev)
+            pdx = torch.where(
+                oob, neg, exf + pw - 1 - st["bx0"][:, None] - iixf[None, :])
+            pdy = torch.where(
+                oob, neg, eyf + pw - 1 - st["by0"][:, None] - iiyf[None, :])
+            doomed = torch.any(oob, dim=1)
+            # only active POIs need exact values: a frozen POI's values are
+            # discarded by the step mask
+            wobble = (((pdx < 0) | (pdx > 2 * D) | (pdy < 0) | (pdy > 2 * D))
+                      & ~oob & (~doomed & active)[:, None])
+            wob_poi = torch.any(wobble, dim=1)
+            n_wob = timing.host_read(s_wobble, wob_poi.sum(), int)
 
-        val = lattice_eval_2d(
-            st["eblk"], pdy.reshape(n, sh, sw), pdx.reshape(n, sh, sw),
-            fyf.reshape(n, sh, sw), fxf.reshape(n, sh, sw), d_wobble=D)
-        val = torch.where(oob, torch.full((), -1.0, dtype=_F32, device=dev),
-                          val.reshape(n, s))
-        if n_wob > cap:
-            # more wobbled POIs than the cap: exact eval of the whole chunk
-            count["full"] += 1
-            tval, _ = bspline.bicubic_eval(lut, gxc, gyc)
-            return torch.where(oob, torch.full_like(tval, -1.0), tval)
-        if n_wob > 0:
-            count["correct"] += 1
-            return _correct(val, gxc, gyc, oob, wob_poi, cap)
-        return val
+            val = lattice_eval_2d(
+                st["eblk"], pdy.reshape(n, sh, sw), pdx.reshape(n, sh, sw),
+                fyf.reshape(n, sh, sw), fxf.reshape(n, sh, sw), d_wobble=D)
+            val = torch.where(oob, torch.full((), -1.0, dtype=_F32,
+                                              device=dev), val.reshape(n, s))
+            if n_wob > cap:
+                # more wobbled POIs than the cap: exact eval of the whole
+                # chunk
+                count["full"] += 1
+                with timing.span(s_exact):
+                    tval, _ = bspline.bicubic_eval(lut, gxc, gyc)
+                    return torch.where(oob, torch.full_like(tval, -1.0),
+                                       tval)
+            if n_wob > 0:
+                count["correct"] += 1
+                with timing.span(s_correct):
+                    return _correct(val, gxc, gyc, oob, wob_poi, cap)
+            return val
 
     return state, eval_fn
 
 
 def make_windowed_eval2d(img, lut, cx, cy, u_seed, v_seed, *, rx, ry, margin,
-                         stats: Optional[collections.Counter] = None):
+                         stats: Optional[collections.Counter] = None,
+                         layer: str = "icgn"):
     """Closure form of :func:`make_windowed_eval2d_state` for the refiners
     that never compact their queue (ICLM, NR): ``eval_fn(gxc, gyc, active)
     -> [N, S]``."""
     st, fn = make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed,
                                         rx=rx, ry=ry, margin=margin,
-                                        stats=stats)
+                                        stats=stats, layer=layer)
     return lambda gxc, gyc, active: fn(st, gxc, gyc, active)
 
 
@@ -415,7 +430,8 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
            order: int = 1, rx: int, ry: int,
            center_offset: Optional[torch.Tensor] = None,
            window_margin: Optional[int] = None, eval_mode: str = "lattice",
-           stats: Optional[collections.Counter] = None):
+           stats: Optional[collections.Counter] = None,
+           layer: str = "icgn"):
     """First- or second-order IC-GN over a POI queue.
 
     Returns (p_out [N,12], u0, v0, zncc, iteration, convergence, computed).
@@ -428,8 +444,10 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     half-extent r+M around the seeded target center and the lattice
     kernel, where a sample leaving its window reads as out of range (-3).
     ``stats``, when given, counts the eval branches and loop phases
-    taken.  It computes in the images' dtype: float32 as the package runs
-    it, float64 for a reference replay on the CPU (with the global LUT)."""
+    taken; ``layer``, the calling module's family, names the spans and host
+    reads (``<layer>.iter``, ``<layer>.sync.active``, ...).  It computes
+    in the images' dtype: float32 as the package runs it, float64 for a
+    reference replay on the CPU (with the global LUT)."""
     if order not in (1, 2):
         raise ValueError(f"icgn2d: order must be 1 or 2, got {order}")
     dev = ref_img.device
@@ -442,54 +460,57 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
 
     u_in = p_in[:, 0]
     v_in = p_in[:, 6]
-    valid = entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h, w)
-    x0, y0 = subset_corners(xs, ys, rx, ry, h, w)
+    with timing.span(f"{layer}.setup"):
+        valid = entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h, w)
+        x0, y0 = subset_corners(xs, ys, rx, ry, h, w)
 
-    # Reference subset, zero-mean norm.
-    ref_sub = gather_windows_2d(ref_img, y0, x0, sh=sh, sw=sw).reshape(n, s)
-    ref_zm = zero_mean(ref_sub)
-    rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
+        # Reference subset, zero-mean norm.
+        ref_sub = gather_windows_2d(ref_img, y0, x0, sh=sh,
+                                    sw=sw).reshape(n, s)
+        ref_zm = zero_mean(ref_sub)
+        rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
 
-    # Local grid, offset by the center offsets for the sd images and the
-    # warp (oc_icgn.cpp:400-408).
-    xl, yl = local_grid(rx, ry, fdt, dev)
-    if center_offset is None:
-        xl = xl.expand(n, s)
-        yl = yl.expand(n, s)
-        tcx, tcy = xs, ys
-    else:
-        ox, oy = center_offset[:, 0], center_offset[:, 1]
-        xl = xl - ox[:, None]
-        yl = yl - oy[:, None]
-        tcx, tcy = xs + ox, ys + oy  # target center (oc_icgn.cpp:425-426)
+        # Local grid, offset by the center offsets for the sd images and the
+        # warp (oc_icgn.cpp:400-408).
+        xl, yl = local_grid(rx, ry, fdt, dev)
+        if center_offset is None:
+            xl = xl.expand(n, s)
+            yl = yl.expand(n, s)
+            tcx, tcy = xs, ys
+        else:
+            ox, oy = center_offset[:, 0], center_offset[:, 1]
+            xl = xl - ox[:, None]
+            yl = yl - oy[:, None]
+            tcx, tcy = xs + ox, ys + oy  # target center (oc_icgn.cpp:425-426)
 
-    # Steepest-descent images and Hessian (oc_icgn.cpp:179-210).  The sd
-    # channels are gradient * monomial products, so the Hessian and the
-    # per-iteration numerator are plain weighted reductions over [N, S].
-    gxs = gather_windows_2d(gx, y0, x0, sh=sh, sw=sw).reshape(n, s)
-    gys = gather_windows_2d(gy, y0, x0, sh=sh, sw=sw).reshape(n, s)
-    sd = sd_images(gxs, gys, xl, yl, order)  # [N, K, S]
-    hinv = linalg_ops.inv_small(hessian(sd))
-    wmat0, warp_from_p, p_from_warp = warp_start(order, p_in)
+        # Steepest-descent images and Hessian (oc_icgn.cpp:179-210).  The sd
+        # channels are gradient * monomial products, so the Hessian and the
+        # per-iteration numerator are plain weighted reductions over [N, S].
+        gxs = gather_windows_2d(gx, y0, x0, sh=sh, sw=sw).reshape(n, s)
+        gys = gather_windows_2d(gy, y0, x0, sh=sh, sw=sw).reshape(n, s)
+        sd = sd_images(gxs, gys, xl, yl, order)  # [N, K, S]
+        hinv = linalg_ops.inv_small(hessian(sd))
+        wmat0, warp_from_p, p_from_warp = warp_start(order, p_in)
 
-    if window_margin is not None and eval_mode == "lattice":
-        if tar_img is None:
-            raise ValueError("icgn2d: the windowed eval needs tar_img")
-        ev_state, ev_fn = make_windowed_eval2d_state(
-            tar_img, tar_lut, tcx, tcy, u_in, v_in, rx=rx, ry=ry,
-            margin=window_margin, stats=count)
-    else:
-        ev_state = {}
+        if window_margin is not None and eval_mode == "lattice":
+            if tar_img is None:
+                raise ValueError("icgn2d: the windowed eval needs tar_img")
+            ev_state, ev_fn = make_windowed_eval2d_state(
+                tar_img, tar_lut, tcx, tcy, u_in, v_in, rx=rx, ry=ry,
+                margin=window_margin, stats=count, layer=layer)
+        else:
+            ev_state = {}
 
-        def ev_fn(st, gxc, gyc, active):
-            return bspline.bicubic_eval(tar_lut, gxc, gyc)[0]
+            def ev_fn(st, gxc, gyc, active):
+                with timing.span(f"{layer}.eval"):
+                    return bspline.bicubic_eval(tar_lut, gxc, gyc)[0]
 
-    dp_w = _dp_weights(order, rx, ry).to(device=dev, dtype=fdt)
+        dp_w = _dp_weights(order, rx, ry).to(device=dev, dtype=fdt)
 
-    # Per-POI loop constants: the two-phase compaction gathers a shrunken
-    # copy of everything the GN body reads.
-    cc = dict(tcx=tcx, tcy=tcy, xl=xl, yl=yl, sd=sd, ref_zm=ref_zm, rn=rn,
-              hinv=hinv, ev=ev_state)
+        # Per-POI loop constants: the two-phase compaction gathers a shrunken
+        # copy of everything the GN body reads.
+        cc = dict(tcx=tcx, tcy=tcy, xl=xl, yl=yl, sd=sd, ref_zm=ref_zm, rn=rn,
+                  hinv=hinv, ev=ev_state)
 
     def body(cc, state):
         wmat, active, it, dpn, znssd, oob_fail = state
@@ -527,33 +548,40 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
         # runs the same body on a gather-compacted quarter-width state
         # (each POI's math is independent and unchanged).
         m = -(-n // 4)
-        while int(state[1].sum()) > m:
+        while timing.host_read(f"{layer}.sync.active", state[1].sum(),
+                               int) > m:
             count["iter_full"] += 1
-            state = body(cc, state)
-        wmat, active1, it, dpn, znssd, oob_fail = state
-        gi, si, okc = compact_idx(active1, m)
-        cc_s = {k: ({kk: vv[gi] for kk, vv in v.items()}
-                    if isinstance(v, dict) else v[gi])
-                for k, v in cc.items()}
-        sub = (wmat[gi], active1[gi] & okc, it[gi], dpn[gi], znssd[gi],
-               oob_fail[gi])
-        while bool(sub[1].any()):
+            with timing.span(f"{layer}.iter"):
+                state = body(cc, state)
+        with timing.span(f"{layer}.compact"):
+            wmat, active1, it, dpn, znssd, oob_fail = state
+            gi, si, okc = compact_idx(active1, m)
+            cc_s = {k: ({kk: vv[gi] for kk, vv in v.items()}
+                        if isinstance(v, dict) else v[gi])
+                    for k, v in cc.items()}
+            sub = (wmat[gi], active1[gi] & okc, it[gi], dpn[gi], znssd[gi],
+                   oob_fail[gi])
+        while timing.host_read(f"{layer}.sync.active", sub[1].any(), bool):
             count["iter_compact"] += 1
-            sub = body(cc_s, sub)
-        wmat = _put(wmat, si, sub[0])
-        it = _put(it, si, sub[2])
-        dpn = _put(dpn, si, sub[3])
-        znssd = _put(znssd, si, sub[4])
-        oob_fail = _put(oob_fail, si, sub[5])
+            with timing.span(f"{layer}.iter"):
+                sub = body(cc_s, sub)
+        with timing.span(f"{layer}.compact"):
+            wmat = _put(wmat, si, sub[0])
+            it = _put(it, si, sub[2])
+            dpn = _put(dpn, si, sub[3])
+            znssd = _put(znssd, si, sub[4])
+            oob_fail = _put(oob_fail, si, sub[5])
     else:
-        while bool(state[1].any()):
+        while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
             count["iter_full"] += 1
-            state = body(cc, state)
+            with timing.span(f"{layer}.iter"):
+                state = body(cc, state)
         wmat, _, it, dpn, znssd, oob_fail = state
 
-    p_out, zncc_out, computed = finish(
-        order, p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it, dpn,
-        znssd, conv, max_iter, icgn_guard(zncc_in))
+    with timing.span(f"{layer}.finish"):
+        p_out, zncc_out, computed = finish(
+            order, p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it,
+            dpn, znssd, conv, max_iter, icgn_guard(zncc_in))
     return p_out, u_in, v_in, zncc_out, it, dpn, computed
 
 
@@ -589,10 +617,12 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
                     sry: torch.Tensor, p_in: torch.Tensor,
                     zncc_in: torch.Tensor, conv: float, max_iter: float, *,
                     order: int, r_max: int,
-                    stats: Optional[collections.Counter] = None):
+                    stats: Optional[collections.Counter] = None,
+                    layer: str = "icgn"):
     """Self-adaptive-subset IC-GN (oc_icgn.cpp:152-158): per-POI subset
     radii ``srx``/``sry`` [N] on the static ``r_max`` grid
-    (:func:`adaptive_subsets`), every sample through the global LUT.
+    (:func:`adaptive_subsets`), every sample through the global LUT;
+    ``layer`` names the spans and host reads, as in :func:`icgn2d`.
     Returns (p_out, u0, v0, zncc, iteration, convergence, computed)."""
     h, w = ref_img.shape
     count = stats if stats is not None else collections.Counter()
@@ -631,9 +661,10 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
 
     zf = torch.zeros_like(xs)
     state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
-    while bool(state[1].any()):
+    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
         count["iter_full"] += 1
-        state = body(state)
+        with timing.span(f"{layer}.iter"):
+            state = body(state)
     wmat, _, it, dpn, znssd, oob_fail = state
     p_out, zncc_out, computed = finish(
         order, p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it, dpn,
@@ -652,7 +683,7 @@ WORKSET_ARRAYS_3D = 40
 
 
 def _lattice_eval3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
-                    margin, count):
+                    margin, count, layer: str):
     """The windowed lattice eval of icgn3d1 (JAX ``icgn.py:899-1041``).
 
     Per-POI coefficient windows of half-extent r+margin sit on the seeded
@@ -745,10 +776,11 @@ def _lattice_eval3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
         live = (~doomed & active)[:, None, None, None]
         wobble = (((pdx < 0) | (pdx > 2 * D) | (pdy < 0) | (pdy > 2 * D)
                    | (pdz < 0) | (pdz > 2 * D)) & ~oob4 & live)
-        if bool(wobble.any()):
+        if timing.host_read(f"{layer}.sync.wobble", wobble.any(), bool):
             count["fallback"] += 1
-            tval, _ = bspline.tricubic_eval(coeff, gxc, gyc, gzc)
-            return torch.where(oob, torch.full_like(tval, -1.0), tval)
+            with timing.span(f"{layer}.exact"):
+                tval, _ = bspline.tricubic_eval(coeff, gxc, gyc, gzc)
+                return torch.where(oob, torch.full_like(tval, -1.0), tval)
         del wobble
         count["lattice"] += 1
         val = lattice_eval_3d(cut_eblk(bz0, by0, bx0), pdz, pdy, pdx, fz, fy,
@@ -796,7 +828,8 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
             zncc_in: torch.Tensor, conv: float, max_iter: float, *, rx: int,
             ry: int, rz: int, window_margin: Optional[int] = None,
             eval_mode: str = "lattice", z_guard_lo=None, z_guard_hi=None,
-            stats: Optional[collections.Counter] = None):
+            stats: Optional[collections.Counter] = None,
+            layer: str = "icgn"):
     """3D first-order IC-GN (oc_icgn.cpp:1270-1490) over a POI queue.
 
     Returns (p_out [N,12], u0, v0, w0, zncc, iteration, convergence,
@@ -812,7 +845,8 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     +-inf turns a side off) tighten the range guard along z, as the sharded
     DVC path needs on a halo-extended block: a warped sample with
     z < lo or z >= hi fails its POI with -3.  ``stats``, when given, counts
-    iterations, lattice launches and fallback iterations.  It computes in
+    iterations, lattice launches and fallback iterations; ``layer`` names
+    the spans and host reads, as in :func:`icgn2d`.  It computes in
     the volumes' dtype: float32 as the package runs it, float64 for a
     reference replay on the CPU."""
     z_guarded = z_guard_lo is not None or z_guard_hi is not None
@@ -826,58 +860,60 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     s = sx * sy * sz
     count = stats if stats is not None else collections.Counter()
 
-    u_in, v_in, w_in = p_in[:, 0], p_in[:, 4], p_in[:, 8]
-    # Entry guard: subset inside the volume, sane seed, no earlier failure.
-    valid = ((xs - rx >= 0) & (ys - ry >= 0) & (zs - rz >= 0)
-             & (xs + rx <= dx_ - 1) & (ys + ry <= dy_ - 1)
-             & (zs + rz <= dz_ - 1)
-             & (u_in.abs() < dx_) & (v_in.abs() < dy_) & (w_in.abs() < dz_)
-             & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in)
-             & ~torch.isnan(w_in))
+    with timing.span(f"{layer}.setup"):
+        u_in, v_in, w_in = p_in[:, 0], p_in[:, 4], p_in[:, 8]
+        # Entry guard: subset inside the volume, sane seed, no earlier failure.
+        valid = ((xs - rx >= 0) & (ys - ry >= 0) & (zs - rz >= 0)
+                 & (xs + rx <= dx_ - 1) & (ys + ry <= dy_ - 1)
+                 & (zs + rz <= dz_ - 1)
+                 & (u_in.abs() < dx_) & (v_in.abs() < dy_) & (w_in.abs() < dz_)
+                 & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in)
+                 & ~torch.isnan(w_in))
 
-    x0 = torch.clamp(xs.to(_I32) - rx, 0, dx_ - sx)  # (int) truncation
-    y0 = torch.clamp(ys.to(_I32) - ry, 0, dy_ - sy)
-    z0 = torch.clamp(zs.to(_I32) - rz, 0, dz_ - sz)
+        x0 = torch.clamp(xs.to(_I32) - rx, 0, dx_ - sx)  # (int) truncation
+        y0 = torch.clamp(ys.to(_I32) - ry, 0, dy_ - sy)
+        z0 = torch.clamp(zs.to(_I32) - rz, 0, dz_ - sz)
 
-    def subsets(vol):
-        return gather_windows_3d(vol, z0, y0, x0, sz, sy, sx).reshape(n, s)
+        def subsets(vol):
+            return gather_windows_3d(vol, z0, y0, x0, sz, sy, sx).reshape(n, s)
 
-    # Reference subset and its zero-mean norm.
-    ref_sub = subsets(ref_vol)
-    ref_zm = ref_sub - ref_sub.mean(dim=1, keepdim=True)
-    del ref_sub
-    rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
+        # Reference subset and its zero-mean norm.
+        ref_sub = subsets(ref_vol)
+        ref_zm = ref_sub - ref_sub.mean(dim=1, keepdim=True)
+        del ref_sub
+        rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
 
-    # Local grid, x fastest, then y, then z.
-    zg, yg, xg = torch.meshgrid(
-        *(torch.arange(-r, r + 1, dtype=fdt, device=dev)
-          for r in (rz, ry, rx)), indexing="ij")
-    xl, yl, zl = (a.reshape(1, s) for a in (xg, yg, zg))
+        # Local grid, x fastest, then y, then z.
+        zg, yg, xg = torch.meshgrid(
+            *(torch.arange(-r, r + 1, dtype=fdt, device=dev)
+              for r in (rz, ry, rx)), indexing="ij")
+        xl, yl, zl = (a.reshape(1, s) for a in (xg, yg, zg))
 
-    # Steepest-descent images in the 3D p order (oc_icgn.cpp:1314-1325),
-    # as [N, 12, S], and the Hessian.
-    sd = torch.empty((n, 12, s), dtype=fdt, device=dev)
-    for a, g in enumerate((gx, gy, gz)):
-        gs = subsets(g)
-        sd[:, 4 * a] = gs
-        for b, m in enumerate((xl, yl, zl)):
-            sd[:, 4 * a + 1 + b] = gs * m
-    del gs
-    hess = torch.bmm(sd, sd.transpose(1, 2))
-    hinv = linalg_ops.inv_small(hess)
+        # Steepest-descent images in the 3D p order (oc_icgn.cpp:1314-1325),
+        # as [N, 12, S], and the Hessian.
+        sd = torch.empty((n, 12, s), dtype=fdt, device=dev)
+        for a, g in enumerate((gx, gy, gz)):
+            gs = subsets(g)
+            sd[:, 4 * a] = gs
+            for b, m in enumerate((xl, yl, zl)):
+                sd[:, 4 * a + 1 + b] = gs * m
+        del gs
+        hess = torch.bmm(sd, sd.transpose(1, 2))
+        hinv = linalg_ops.inv_small(hess)
 
-    wmat0 = warp_ops.warp3d1_from_p(p_in)
+        wmat0 = warp_ops.warp3d1_from_p(p_in)
 
-    if window_margin is not None and eval_mode == "tile":
-        eval_tar = _tile_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
-                                rx=rx, ry=ry, rz=rz, margin=window_margin)
-    elif window_margin is not None:
-        eval_tar = _lattice_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
-                                   rx=rx, ry=ry, rz=rz, margin=window_margin,
-                                   count=count)
-    else:
-        def eval_tar(gxc, gyc, gzc, active):
-            return bspline.tricubic_eval(tar_coeff, gxc, gyc, gzc)[0]
+        if window_margin is not None and eval_mode == "tile":
+            eval_tar = _tile_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
+                                    rx=rx, ry=ry, rz=rz, margin=window_margin)
+        elif window_margin is not None:
+            eval_tar = _lattice_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
+                                       rx=rx, ry=ry, rz=rz,
+                                       margin=window_margin,
+                                       count=count, layer=layer)
+        else:
+            def eval_tar(gxc, gyc, gzc, active):
+                return bspline.tricubic_eval(tar_coeff, gxc, gyc, gzc)[0]
 
     def body(state):
         wmat, active, it, dpn, znssd, oob_fail = state
@@ -889,7 +925,8 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
                                  + wmat[:, row, 3, None])
 
         gzc = coord(2, zs)
-        tval = eval_tar(coord(0, xs), coord(1, ys), gzc, active)
+        with timing.span(f"{layer}.eval"):
+            tval = eval_tar(coord(0, xs), coord(1, ys), gzc, active)
         # A negative sample, the -1 sentinel included, fails the POI, as
         # does a sample past the z guards.
         fail_any = torch.any(tval < 0.0, dim=1)
@@ -923,28 +960,30 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
 
     zf = torch.zeros_like(xs)
     state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
-    while bool(state[1].any()):
+    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
         count["iter"] += 1
-        state = body(state)
+        with timing.span(f"{layer}.iter"):
+            state = body(state)
     wmat, _, it, dpn, znssd, oob_fail = state
 
-    computed = valid & ~oob_fail
-    p_new = warp_ops.p_from_warp3d1(wmat)
-    zncc = 0.5 * (2.0 - znssd)
-    # Not-converged code.
-    zncc = torch.where((dpn >= conv) & (it >= max_iter),
-                       torch.full_like(zncc, -4.0), zncc)
-    # NaN code; u, v, w restored to the initial guess.
-    isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, 0])
-             | torch.isnan(p_new[:, 4]) | torch.isnan(p_new[:, 8]))
-    zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
-    for col, orig in ((0, u_in), (4, v_in), (8, w_in)):
-        p_new[:, col] = torch.where(isnan, orig, p_new[:, col])
+    with timing.span(f"{layer}.finish"):
+        computed = valid & ~oob_fail
+        p_new = warp_ops.p_from_warp3d1(wmat)
+        zncc = 0.5 * (2.0 - znssd)
+        # Not-converged code.
+        zncc = torch.where((dpn >= conv) & (it >= max_iter),
+                           torch.full_like(zncc, -4.0), zncc)
+        # NaN code; u, v, w restored to the initial guess.
+        isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, 0])
+                 | torch.isnan(p_new[:, 4]) | torch.isnan(p_new[:, 8]))
+        zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
+        for col, orig in ((0, u_in), (4, v_in), (8, w_in)):
+            p_new[:, col] = torch.where(isnan, orig, p_new[:, col])
 
-    p_out = torch.where(computed[:, None], p_new, p_in)
-    zncc_guard = torch.where(zncc_in >= 0, torch.full_like(zncc_in, -3.0),
-                             zncc_in)
-    zncc_out = torch.where(
-        valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
-        zncc_guard)
+        p_out = torch.where(computed[:, None], p_new, p_in)
+        zncc_guard = torch.where(zncc_in >= 0, torch.full_like(zncc_in, -3.0),
+                                 zncc_in)
+        zncc_out = torch.where(
+            valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
+            zncc_guard)
     return p_out, u_in, v_in, w_in, zncc_out, it, dpn, computed

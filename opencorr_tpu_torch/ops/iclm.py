@@ -22,6 +22,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..utils import timing
 from . import linalg as linalg_ops
 from .gather2d import gather_windows_2d
 from .icgn import (_dp_weights, adaptive_subsets, dp_weights_per_poi,
@@ -31,10 +32,11 @@ from .icgn import (_dp_weights, adaptive_subsets, dp_weights_per_poi,
 
 
 def _lm_loop(order, ev, hess, sd, ref_zm, rn, xs, ys, xl, yl, p_in, zncc_in,
-             valid, dp_w, conv, max_iter, damping, count, pmf=None,
+             valid, dp_w, conv, max_iter, damping, count, layer, pmf=None,
              cnt=None):
     """The damped iteration and its codes (oc_iclm.cpp:225-340); ``pmf`` /
-    ``cnt``: the self-adaptive pixel mask and counts."""
+    ``cnt``: the self-adaptive pixel mask and counts; ``layer`` names the
+    spans and host reads."""
     lam0, alpha, beta = (float(d) for d in damping)
     k = sd.shape[1]
     eye = torch.eye(k, dtype=hess.dtype, device=hess.device)
@@ -74,9 +76,10 @@ def _lm_loop(order, ev, hess, sd, ref_zm, rn, xs, ys, xl, yl, p_in, zncc_in,
 
     zf = torch.zeros_like(xs)
     state = (wmat0, valid, zf, zf, zf, zf, zf + 4.0)
-    while bool(state[1].any()):
+    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
         count["iter_full"] += 1
-        state = body(state)
+        with timing.span(f"{layer}.iter"):
+            state = body(state)
     wmat, _, it, dpn, znssd = state[:5]
     p_out, zncc_out, computed = finish(
         order, p_from_warp(wmat), p_in, zncc_in, valid,
@@ -92,14 +95,16 @@ def iclm2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
            tar_img: Optional[torch.Tensor] = None, *, order: int, rx: int,
            ry: int, window_margin: Optional[int] = None,
            eval_mode: str = "lattice",
-           stats: Optional[collections.Counter] = None):
+           stats: Optional[collections.Counter] = None,
+           layer: str = "iclm"):
     """First- or second-order IC-LM over a POI queue; ``damping`` is
     (lambda, alpha, beta).  ``window_margin`` None, or an ``eval_mode``
     other than "lattice", evaluates the target through the global
     per-pixel LUT; an int M through per-POI windows of half-extent r+M
     around the seeded center and the lattice kernel
     (``ops/icgn.make_windowed_eval2d``).  ``stats`` counts the eval
-    branches and iterations.  Returns (p_out [N,12], u0, v0, zncc,
+    branches and iterations; ``layer``, the calling module's family, names
+    the spans and host reads.  Returns (p_out [N,12], u0, v0, zncc,
     iteration, convergence, computed)."""
     if order not in (1, 2):
         raise ValueError(f"iclm2d: order must be 1 or 2, got {order}")
@@ -122,13 +127,13 @@ def iclm2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
             raise ValueError("iclm2d: the windowed eval needs tar_img")
         ev = make_windowed_eval2d(tar_img, tar_lut, xs, ys, u_in, v_in,
                                   rx=rx, ry=ry, margin=window_margin,
-                                  stats=count)
+                                  stats=count, layer=layer)
     else:
         ev = global_eval2d(tar_lut)
     dp_w = _dp_weights(order, rx, ry).to(ref_img.device)[None, :]
     return _lm_loop(order, ev, hessian(sd), sd, ref_zm, rn, xs, ys, xl, yl,
                     p_in, zncc_in, valid, dp_w, conv, max_iter, damping,
-                    count)
+                    count, layer)
 
 
 def iclm2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
@@ -137,10 +142,12 @@ def iclm2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
                     sry: torch.Tensor, p_in: torch.Tensor,
                     zncc_in: torch.Tensor, conv: float, max_iter: float,
                     damping: Sequence[float], *, order: int, r_max: int,
-                    stats: Optional[collections.Counter] = None):
+                    stats: Optional[collections.Counter] = None,
+                    layer: str = "iclm"):
     """Self-adaptive-subset IC-LM (oc_iclm.cpp:158-164, :510-516): the
     masked ``r_max`` grid of ``ops/icgn.icgn2d_adaptive`` on the damped
-    iteration, every sample through the global LUT."""
+    iteration, every sample through the global LUT; ``layer`` as in
+    :func:`iclm2d`."""
     h, w = ref_img.shape
     count = stats if stats is not None else collections.Counter()
     u_in, v_in = p_in[:, 0], p_in[:, 6]
@@ -152,4 +159,4 @@ def iclm2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
     return _lm_loop(order, global_eval2d(tar_lut), hessian(a["sd"]),
                     a["sd"], a["ref_zm"], a["rn"], xs, ys, a["xl"], a["yl"],
                     p_in, zncc_in, valid, dp_w, conv, max_iter, damping,
-                    count, pmf=a["pmf"], cnt=a["count"])
+                    count, layer, pmf=a["pmf"], cnt=a["count"])

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import timing
 from . import linalg as linalg_ops
 from .gather2d import gather_windows_2d
 from .icgn import (_dp_weights, entry_guard, finish, global_eval2d, hessian,
@@ -38,12 +39,13 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
           tar_gx_img: Optional[torch.Tensor] = None,
           tar_gy_img: Optional[torch.Tensor] = None, *, rx: int, ry: int,
           window_margin: Optional[int] = None, eval_mode: str = "lattice",
-          stats: Optional[collections.Counter] = None):
+          stats: Optional[collections.Counter] = None, layer: str = "nr"):
     """First-order NR over a POI queue.  ``window_margin`` None, or an
     ``eval_mode`` other than "lattice", evaluates the target and its
     gradients through their global LUTs; an int M through three windowed
     evals (``ops/icgn.make_windowed_eval2d``), each
-    on its own image and LUT.  Returns (p_out [N,12], u0, v0, zncc,
+    on its own image and LUT.  ``layer``, the calling module's family,
+    names the spans and host reads.  Returns (p_out [N,12], u0, v0, zncc,
     iteration, convergence, computed)."""
     h, w = ref_img.shape
     n = xs.shape[0]
@@ -66,7 +68,8 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
                              "image and both gradient images")
         evals = [make_windowed_eval2d(img, lut, xs, ys, u_in, v_in, rx=rx,
                                       ry=ry, margin=window_margin,
-                                      stats=count) for img, lut in pairs]
+                                      stats=count, layer=layer)
+                 for img, lut in pairs]
     else:
         evals = [global_eval2d(lut) for _, lut in pairs]
 
@@ -98,9 +101,10 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
 
     zf = torch.zeros_like(xs)
     state = (p_in[:, [0, 1, 2, 6, 7, 8]], valid, zf, zf, zf)
-    while bool(state[1].any()):
+    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
         count["iter_full"] += 1
-        state = body(state)
+        with timing.span(f"{layer}.iter"):
+            state = body(state)
     p6, _, it, dpn, znssd = state
     p_out, zncc_out, computed = finish(
         1, p6, p_in, zncc_in, valid, torch.zeros_like(valid), it, dpn,

@@ -38,6 +38,8 @@ import sys
 import time
 
 
+# the stage ranges: this script's own, and the examples' StageTimer spans
+RANGES = ("stage:", "oc:")
 # the port's hand-written kernels, by the names of their __global__
 # functions: reported in every stage whether or not they are in its top
 PORT_KERNELS = ("gather_windows_kernel", "lattice2d_kernel",
@@ -93,7 +95,7 @@ def _sift_path(torch, cs, ot):
 
 def _stereo_path(torch, cs, ot):
     """The stereo example's run at GT4's size on chip_smoke.py's scene; its
-    phases are the ranges ``stage:<name>`` it opens itself."""
+    phases are the ranges ``oc:<name>`` its StageTimer opens."""
     from opencorr_tpu_torch.examples import stereo_3d_dic_epipolar_sift as ex
 
     views, pts, _, _ = cs.stereo_inputs()
@@ -190,10 +192,10 @@ def main() -> int:
     on_device = lambda e: str(e.device_type).endswith("CUDA")
     # the stage ranges on the host, and the kernels (the device events that
     # are not the ranges' own device-side annotations)
-    ranges = {e.name[6:]: e for e in events
-              if e.name.startswith("stage:") and not on_device(e)}
+    ranges = {e.name.split(":", 1)[1]: e for e in events
+              if e.name.startswith(RANGES) and not on_device(e)}
     kernels = [e for e in events
-               if on_device(e) and not e.name.startswith("stage:")]
+               if on_device(e) and not e.name.startswith(RANGES)]
     out = {}
     for name, wall in stages.items():
         t0, t1 = ranges[name].time_range.start, ranges[name].time_range.end

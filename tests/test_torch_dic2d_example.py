@@ -237,11 +237,10 @@ def test_stage_timer_csv_matches_jax(tmp_path):
         t.save_csv(str(paths[-1]), 30000)
         assert t.report() == JaxStageTimer.report(t)
     assert paths[0].read_bytes() == paths[1].read_bytes()
-    t = ot.StageTimer(profile_dir=str(tmp_path / "prof"))
+    t = ot.StageTimer()
     with t.stage("a stage"):
         torch.ones(4).sum()
     assert t.names == ["a stage"] and t.seconds[0] >= 0
-    assert (tmp_path / "prof" / "a_stage.json").exists()
 
 
 def test_native_table_codec(tmp_path, monkeypatch):
