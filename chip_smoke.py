@@ -28,7 +28,11 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    3D lattice eval at D=1 at one ICGN3D1 chunk of the DVC path (441 x
    61^3) and of the SIFT path (2,795 x 33^3), on offsets from a smooth
    affine warp per POI (as ICGN3D1 makes them) and on random ones, equal
-   with ``==``; both lattice evals exactly 0 for out-of-range offsets; the
+   with ``==``; both lattice evals exactly 0 for out-of-range offsets;
+   ICGN3D1's step kernels at those two chunks (``phase_icgn3d_step``):
+   the prologue ``==`` its plain version on all nine outputs, the residual
+   with and without z guards within the card test's tolerance of its plain
+   version (fail flags equal) and equal from run to run; the
    SIFT3D descriptor histogram at the octave-0 crops 23, 29 and 36, with
    random rotations, at 64 keypoints (some near the volume's faces in
    clamped windows; the kernel splits each box into z-bands) and at the
@@ -64,9 +68,10 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    whose target is the reference under u=0.4, v=-0.3 and w=0.6 plus 0.5%
    strain along z, then ``save_table_3d`` and ``save_matrix_bin_3d``.
    Counters zeroed just before the timed run (after a 512-POI warm-up) and
-   read just after; kernel 3's launches in that run are also timed with
-   CUDA events and summed.  Checks convergence, the recovered field and
-   ezz.
+   read just after; the launches of kernel 3 and of ICGN3D1's step
+   kernels (prologue and residual) in that run are also timed with CUDA
+   events and summed, and their shapes must be phase 2's.  Checks
+   convergence, the recovered field and ezz.
 6. The DVC modules on ``cuda`` and on ``cpu`` on 64 POIs at r=16, every
    8th seed given a 0.2 z strain so that IC-GN takes its whole-chunk exact
    fallback: FFTCC u/v/w equal, codes equal, u/v/w within 1e-3 voxel.
@@ -81,12 +86,13 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ``save_table_3d``, ``save_matrix_bin_3d`` on
    ``poi_grid_3d((30,30,30),81,21,46,11)`` (78,246 POIs) read from a POI
    CSV.  Counters zeroed after a warm-up on a sub-volume and read just
-   after, kernels 3 and 4 timed per launch with CUDA events in that run.
+   after, kernels 3 and 4 and the step kernels timed per launch with CUDA
+   events in that run.
    Reports every pyramid layer's candidate and survivor counts beside its
    caps; checks the median matched displacement (within 1 voxel of the
    shift), the converged fraction (>= 0.9), mean |du|, |dv|, |dw| (< 0.01
    voxel), the native writer and that every launch shape of kernels 3 and
-   4 is one phase 2 checked.
+   4 and of the step kernels is one phase 2 checked.
 8. SIFT3D (device path), FeatureAffine3D and ICGN3D1 on ``cuda`` and on
    ``cpu`` on a 64x64x72 pair: keypoint counts and matched sets equal; FeatureAffine3D
    on the same matches with the same RANSAC draws: codes equal, p within
@@ -139,16 +145,18 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ``.bin`` files of phase 5's volumes with phase 5's grid as a POI CSV
    (r=30), then ``strain`` on the table it wrote.  Checks the table
    equals phase 5's, phase 5's gates, mean ezz within 1e-3 of 0.005, the
-   native writers and every kernel-3 launch shape against phase 2's.
+   native writers and every launch shape of kernel 3 and of the step
+   kernels against phase 2's.
 14. Sharded DVC (``parallel/halo.ShardedICGN3D1``) on a real NCCL group of
    one (``make_mesh(1, axis="z")``): ShardedICGN3D1(30,30,30,0.001,10) on
    phase 5's uint8 volumes and FFTCC3D seeds (5,733 POIs) against phase
    5's ICGN3D1 table, codes equal and u/v/w within 1e-5 voxel, every
-   kernel-3 launch shape one phase 2 checked; then 64 POIs at r=16 (four
+   launch shape of kernel 3 and of the step kernels (the residual with z
+   guards) one phase 2 checked; then 64 POIs at r=16 (four
    at the z faces, which the z guards and the global edge guard fail -3)
    on ``cuda`` and on the group's cpu mesh: codes equal, u/v/w within
    1e-3 voxel.  Prints the stage times (halo exchange, prepare, refine,
-   gather) and kernel 3's launches.
+   gather) and the launches of kernel 3 and the step kernels.
 15. The reconstruction example (``examples/reconstruction_epipolar.run``,
    SIFT mode) on ``cuda`` on 1920x1200 views of a curved speckled surface
    (``ReconScene``: its view-2 x parallax is bilinear in the view-1
@@ -167,7 +175,8 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
 16. (a) SIFT3D's host path (the default of SIFT3D() and of the DVC
    example, every extremum kept) through ``examples/dvc.run``'s
    ``sift_icgn1`` on phase 7's pair and grid, after a warm-up on a
-   sub-volume; kernels 3 and 4 counted and timed per launch.  Prints every
+   sub-volume; kernels 3 and 4 and the step kernels counted and timed per
+   launch.  Prints every
    layer's extrema, oriented and kept counts and its descriptor route
    (kernel 4, or the einsum path where the crop does not fit or the window
    clips the sphere), and the host stages' wall ms (blur, DoG, extrema,
@@ -179,7 +188,7 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    layer plan gives it (``expected_routes``), FeatureAffine3D's -1 share
    no more than phase 7's plus 0.01, converged >= 0.9, mean |u - u_true|
    < 0.01 voxel, the median matched displacement within 1 voxel, every
-   kernel-3 launch shape one phase 2 checked.  (b) The host path, and the device path with
+   launch shape of kernel 3 and the step kernels one phase 2 checked.  (b) The host path, and the device path with
    ``hist_bf16=True``, on ``cuda`` and on ``cpu`` on phase 8's pair:
    keypoint counts and matched sets equal; the host path's descriptor
    stage on the same keypoints and rotations within 1e-5 x max|desc|, and
@@ -199,14 +208,16 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    and on ``cpu`` (codes equal, u/v/w within 1e-3 voxel).
 17. JSON lines: per-kernel records (each kernel's time per path,
    ``path_ms``: kernels 1 and 2 estimated, launches x phase 2's device ms
-   per launch shape, its ``timing`` saying so; kernels 3 and 4 CUDA events
-   a launch), the stage times, and last
+   per launch shape, its ``timing`` saying so; kernels 3 and 4 and the
+   step kernels CUDA events a launch, each residual call's four launches
+   as one), the stage times, and last
    ``{"ok": true, "device": {...}}``.  The script refuses to start when
    ``OPENCORR_SIFT2D`` is set.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -701,7 +712,8 @@ def case_images(torch, img, rng):
 
 def phase_kernels(torch, ot, img, rng, reps):
     """Kernel vs plain version on the card at the paths' shapes: kernels 1
-    and 2 at ``kernel12_cases``, kernel 3 at one chunk of each 3D path."""
+    and 2 at ``kernel12_cases``, kernel 3 and ICGN3D1's step kernels at
+    one chunk of each 3D path."""
     dev = img.device
     gathers, lattices = kernel12_cases(ot)
     images = case_images(torch, img, rng)
@@ -715,12 +727,16 @@ def phase_kernels(torch, ot, img, rng, reps):
             **({"slice": "dic2d"} if exact else {})))
         torch.cuda.empty_cache()
     records["lattice3d"] = []
+    records["prologue3d"], records["residual3d"] = [], []
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
     for n, s in lattice3d_chunks(torch):
         for kind in ("path", "random"):
             records["lattice3d"].append(phase_lattice3d(
                 torch, gen, reps, n=n, s=s, kind=kind))
             torch.cuda.empty_cache()
+        pro, res = phase_icgn3d_step(torch, gen, reps, n, (s - 1) // 2)
+        records["prologue3d"].append(pro)
+        records["residual3d"].append(res)
     return records
 
 
@@ -816,6 +832,192 @@ def phase_lattice3d(torch, gen, reps, n, s, kind, d=1):
         bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
     log(json.dumps({"kernel": "lattice_eval_3d", **rec}))
     return rec
+
+
+def step_chunk(torch, gen, n, r, margin=8):
+    """One ICGN3D1 chunk as the step kernels see it on its path, built on
+    the card from ``gen``: the first ``n`` POIs of the path's grid and its
+    volume's size (r=30: the DVC path's, ``DVC_GRID`` on ``DVC_SHAPE``;
+    r=16: the SIFT path's, ``TORUS_GRID`` on ``TORUS_SHAPE``), seeds within
+    a voxel, warps within 0.5% strain and a voxel of translation, windows
+    of ``margin`` on the seeds; a speckle reference volume (a 3x3x3 mean of
+    noise) with its gradients and a coefficient volume.  Returns ``(wmat,
+    xs, ys, zs, wc, coeff, grads, ref)``."""
+    import opencorr_tpu_torch as ot
+    from opencorr_tpu_torch.ops import gradient
+
+    dev = torch.device("cuda")
+    grid, dims = {DVC_R: (DVC_GRID, DVC_SHAPE),
+                  TORUS_R: (TORUS_GRID, TORUS_SHAPE)}[r]
+    rnd = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    pois = ot.poi_grid_3d(*grid, device="cpu")
+    cen = [a[:n].to(dev) for a in (pois.x, pois.y, pois.z)]
+    u = 2 * rnd(3, n) - 1
+    wmat = torch.eye(4, device=dev).repeat(n, 1, 1)
+    wmat[:, :3, :3] += 0.01 * rnd(n, 3, 3) - 0.005
+    wmat[:, :3, 3] = u.T + 0.6 * rnd(n, 3) - 0.3
+    side = 2 * (r + margin) + 1
+    wc = [torch.clamp(torch.floor(c + uu).to(torch.int32) - (r + margin), 0,
+                      d - side) for c, uu, d in zip(cen, u, dims[::-1])]
+    coeff = 320 * rnd(*dims) - 30
+    ref = (torch.nn.functional.avg_pool3d(
+        torch.randn(dims, generator=gen, device=dev)[None, None], 3, 1, 1)
+        [0, 0] * 40 + 128)
+    grads = [getattr(gradient, f"gradient_{a}_3d")(ref).contiguous()
+             for a in "xyz"]
+    return wmat, *cen, wc, coeff, grads, ref
+
+
+def box_bytes(lo, hi, dims):
+    """float32 bytes of the box spanned by the corners ``lo`` (per axis,
+    the least) to ``hi`` (the greatest end), clipped to ``dims``."""
+    return 4 * int(np.prod([min(int(h), d) - max(int(l), 0)
+                            for l, h, d in zip(lo, hi, dims)]))
+
+
+def phase_icgn3d_step(torch, gen, reps, n, r, margin=8, d=1):
+    """ICGN3D1's step kernels against their plain versions at one chunk
+    (``step_chunk``): the prologue ``==`` on all nine outputs, then kernel
+    3 on them; the residual, on values near the reference subsets with one
+    failing POI, without and with z guards (which fail some POIs): fail
+    flags equal, ZNSSD within 1e-5 relative and each of the 12 sums within
+    2e-5 of the sum of its terms' magnitudes (the card test's tolerance:
+    the kernels add in another order).  Each timed, with its least time:
+    the prologue writes six [N, S] arrays and the blocks and reads the
+    coefficient volume under the windows; the residual reads the values
+    once and the four volumes under the subsets (the boxes the windows and
+    the subsets span).  Returns a record for each kernel."""
+    from opencorr_tpu_torch.ops import icgn3d_step, lattice3d
+
+    wmat, xs, ys, zs, wc, coeff, grads, ref_vol = step_chunk(
+        torch, gen, n, r, margin)
+    s1 = 2 * r + 1
+    s = s1 ** 3
+    kw = dict(rx=r, ry=r, rz=r, margin=margin, d_wobble=d)
+    pro = lambda: icgn3d_step.lattice_prologue_3d(wmat, xs, ys, zs, *wc,
+                                                  coeff, **kw)
+    got = pro()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = icgn3d_step.lattice_prologue_3d_plain(wmat, xs, ys, zs, *wc,
+                                                 coeff, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    names = ("pdz", "pdy", "pdx", "fz", "fy", "fx", "eblk", "doomed",
+             "wobble")
+    for name, g, w in zip(names, got, want):
+        check(torch.equal(g, w), f"icgn3d prologue {n}x{s1}^3: {name} not "
+              "bit-equal to the plain version")
+    del want
+    side = 2 * (r + margin) + 1
+    nbytes = (6 * n * s + got[6].numel()) * 4 + box_bytes(
+        [int(w.min()) for w in wc[::-1]],
+        [int(w.max()) + side for w in wc[::-1]], coeff.shape)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    pro_rec = dict(
+        shape=[n, s1, s1, s1], margin=margin, d_wobble=d, max_abs_err=0.0,
+        bit_equal=True, doomed=int(got[7].sum()), wobble=int(got[8].sum()),
+        ms=cuda_ms(torch, pro, reps), plain_ms=plain_ms, library_ms=None,
+        library_note="no single PyTorch call warps, guards and places "
+                     "samples on a lattice",
+        bound_ms=tb, bound_by="bytes", bytes=nbytes)
+    log(json.dumps({"kernel": "lattice_prologue_3d", **pro_rec}))
+    tval = lattice3d.lattice_eval_3d(got[6], *got[:6],
+                                     d_wobble=d).reshape(n, s)
+    del got
+    torch.cuda.empty_cache()
+
+    side_ref = icgn3d_step.reference_3d(*grads, ref_vol, xs, ys, zs, rx=r,
+                                        ry=r, rz=r)
+    check(side_ref.sd is None, "the card's reference side kept sd")
+    _, zm, sd = icgn3d_step._subsets_3d(side_ref, r, r, r)
+    full = dataclasses.replace(side_ref, zm=zm, sd=sd)
+    # values near the reference subsets, so that the sums are a residual's
+    tval = zm[torch.randperm(n, generator=gen, device="cuda")] * 0.3 + (
+        zm * 0.7 + 128 + 2 * torch.randn(zm.shape, generator=gen,
+                                         device="cuda"))
+    tval[3, s // 3] = -1.0  # a failing POI
+    t64 = tval.double()
+    tz = t64 - t64.mean(1, keepdim=True)
+    err = (tz * (side_ref.rn.double() / tz.norm(dim=1))[:, None]
+           - zm).float()
+    del t64, tz
+    scale = torch.bmm(sd.abs(), err.abs()[:, :, None])[:, :, 0].double()
+    del err
+    # guards that fail the POIs of the lowest z layer translated down and
+    # those of the highest translated up by more than half a voxel
+    guarded = (float(zs.min()) - r, float(zs.max()) + r + 0.5)
+    rec = None
+    for guard in (None, guarded):
+        rkw = dict(rx=r, ry=r, rz=r, z_guard=guard)
+        res = lambda: icgn3d_step.residual_3d(tval, None, side_ref, wmat,
+                                              zs, **rkw)
+        got, again = res(), res()
+        start.record()
+        want = icgn3d_step.residual_3d_plain(tval, None, full, wmat, zs,
+                                             **rkw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"icgn3d residual {n}x{s1}^3: two runs differ")
+        check(torch.equal(got[0], want[0]), f"icgn3d residual {n}x{s1}^3: "
+              "fail flags differ from the plain version's")
+        ok = ~want[0]
+        check(bool(want[0][3]) and int(ok.sum()) >= n // 4,
+              f"icgn3d residual: {int(want[0].sum())} of {n} POIs failed")
+        zn_gap = float(((got[1] - want[1]).abs() / want[1].abs())[ok].max())
+        gap = (got[2] - want[2]).double().abs()[ok]
+        num_gap = float((gap / scale[ok]).max())
+        check(zn_gap <= 1e-5 and num_gap <= 2e-5, f"icgn3d residual "
+              f"{n}x{s1}^3: ZNSSD {zn_gap}, sums {num_gap} (relative)")
+        if guard is None:
+            corner = torch.stack((side_ref.z0, side_ref.y0, side_ref.x0))
+            nbytes = n * s * 4 + 4 * box_bytes(
+                corner.min(1).values.tolist(),
+                (corner.max(1).values + s1).tolist(), ref_vol.shape)
+            tb = nbytes / HBM_BYTES_PER_S * 1e3
+            rec = dict(
+                shape=[n, s1, s1, s1], max_abs_err=float(gap.max()),
+                znssd_rel_gap=zn_gap, sums_rel_gap=num_gap,
+                failed=int(want[0].sum()), ms=cuda_ms(torch, res, reps),
+                plain_ms=plain_ms, library_ms=None,
+                library_note="no single PyTorch call reduces the residual "
+                             "and its 12 steepest-descent sums",
+                bound_ms=tb, bound_by="bytes", bytes=nbytes)
+        else:
+            rec["guarded"] = dict(failed=int(want[0].sum()),
+                                  znssd_rel_gap=zn_gap, sums_rel_gap=num_gap)
+        del got, again, want
+    log(json.dumps({"kernel": "residual_3d", **rec}))
+    del full, zm, sd, tval, scale
+    torch.cuda.empty_cache()
+    return pro_rec, rec
+
+
+def dvc_wrappers():
+    """Kernel 3 and ICGN3D1's step kernels: the wrappers each 3D path
+    counts and times a launch."""
+    from opencorr_tpu_torch.ops import icgn3d_step, lattice3d
+
+    return (lattice3d.lattice_eval_3d, icgn3d_step.lattice_prologue_3d,
+            icgn3d_step.residual_3d)
+
+
+def start_counts(wrappers):
+    """Count and time every launch of ``wrappers`` from now on."""
+    for fn in wrappers:
+        fn.launches = 0
+        fn.shapes = {}
+        fn.events = []
+
+
+def read_counts(wrappers):
+    """Launches and ``event_ms`` records of ``wrappers`` since
+    ``start_counts``; stops the counting."""
+    return ({fn.__name__: fn.launches for fn in wrappers},
+            {fn.__name__: event_ms(fn) for fn in wrappers})
 
 
 def random_rotations(rng, n):
@@ -1183,25 +1385,22 @@ def run_dvc(torch, ot, ref, tar, pois, device, r=DVC_R, out_dir=None):
     return seeded, refined, out, ms, dict(icgn.stats), dict(fftcc.stats)
 
 
-def phase_dvc(torch, ot, ref, tar, tmpdir):
-    from opencorr_tpu_torch.ops import lattice3d
-
+def phase_dvc(torch, ot, ref, tar, checked, tmpdir):
     pois = ot.poi_grid_3d(*DVC_GRID)
     n = pois.n
     check(n == int(np.prod(DVC_GRID[1:4])), "DVC grid size")
     run_dvc(torch, ot, ref, tar, pois.map(lambda a: a[:512]), "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lattice3d.lattice_eval_3d.launches = 0
-    lattice3d.lattice_eval_3d.shapes = {}
-    lattice3d.lattice_eval_3d.events = []
+    wrappers = dvc_wrappers()
+    start_counts(wrappers)
     seeded, refined, out, ms, stats, fstats = run_dvc(
         torch, ot, ref, tar, pois, "cuda", out_dir=tmpdir)
-    launches = {"lattice_eval_3d": lattice3d.lattice_eval_3d.launches}
-    kernel_ms = {"lattice_eval_3d": event_ms(lattice3d.lattice_eval_3d)}
+    launches, kernel_ms = read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated()
-    check(launches["lattice_eval_3d"] > 0,
-          "the DVC path launched lattice_eval_3d no time")
+    for name, v in launches.items():
+        check(v > 0, f"the DVC path launched {name} no time")
+        checked_launches(kernel_ms, name, checked[name], "the DVC path")
 
     t = ot.table_to_numpy(out)
     for f, k in (("p", 12), ("r", 7), ("e", 6), ("sr", 3)):
@@ -1408,10 +1607,10 @@ def phase_sift(torch, ot, checked, tmpdir):
     (``sift_backend="device"``: SIFT3D -> FeatureAffine3D(16) -> ICGN3D1(16) ->
     save_table_3d, save_matrix_bin_3d) on the Torus-size pair built on the
     card and a POI CSV, after a warm-up on a sub-volume; kernels 3 and 4
-    counted and timed per launch, every launch shape one of ``checked``
-    (phase 2's)."""
+    and the step kernels counted and timed per launch, every launch shape
+    one of ``checked`` (phase 2's)."""
     from opencorr_tpu_torch.examples import dvc
-    from opencorr_tpu_torch.ops import desc3d, lattice3d
+    from opencorr_tpu_torch.ops import desc3d
 
     t0 = time.perf_counter()
     ref, tar = sift_pair(torch, TORUS_SHAPE, seed=3, device="cuda")
@@ -1433,17 +1632,13 @@ def phase_sift(torch, ot, checked, tmpdir):
             sift_backend="device")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = (desc3d.descriptor_hist, lattice3d.lattice_eval_3d)
-    for fn in wrappers:
-        fn.launches = 0
-        fn.shapes = {}
-        fn.events = []
+    wrappers = (desc3d.descriptor_hist, *dvc_wrappers())
+    start_counts(wrappers)
     prefix = os.path.join(tmpdir, "torus")
     info = {}
     out, timer = dvc.run("sift_icgn1", ref, tar, csv_in, prefix, "cuda",
                          sift_backend="device", stats=info)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    kernel_ms = {fn.__name__: event_ms(fn) for fn in wrappers}
+    launches, kernel_ms = read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated()
     for name, v in launches.items():
         check(v > 0, f"the SIFT path launched {name} no time")
@@ -1490,7 +1685,7 @@ def phase_sift(torch, ot, checked, tmpdir):
     for st in layers:
         log(json.dumps({"sift_layer": st}))
     log(json.dumps({"sift_path": res}))
-    for name in ("descriptor_hist", "lattice_eval_3d"):
+    for name in launches:
         checked_launches(kernel_ms, name, checked[name], "the SIFT path")
     check(all(abs(m - x) <= 1.0 for m, x in zip(med, TORUS_UVW)),
           f"median matched displacement {med} vs {TORUS_UVW}")
@@ -2478,12 +2673,11 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
 def phase_dvc_example(torch, ot, vref, vtar, dvc_refined, checked, tmpdir):
     """``examples/dvc.run``'s ``fftcc_icgn1`` workload on ``.bin`` files of
     phase 5's volumes with phase 5's grid as a POI CSV (r=30), then its
-    ``strain`` workload on the table just written; kernel 3 counted and
-    timed per launch.  Checks the table against phase 5's, phase 5's
-    gates, the strain, the writers and that every launch shape is one of
-    ``checked``."""
+    ``strain`` workload on the table just written; kernel 3 and the step
+    kernels counted and timed per launch.  Checks the table against phase
+    5's, phase 5's gates, the strain, the writers and that every launch
+    shape is one of ``checked``."""
     from opencorr_tpu_torch.examples import dvc
-    from opencorr_tpu_torch.ops import lattice3d
 
     paths = [os.path.join(tmpdir, f"{name}.bin") for name in ("ref", "tar")]
     for path, vol in zip(paths, (vref, vtar)):
@@ -2492,15 +2686,12 @@ def phase_dvc_example(torch, ot, vref, vtar, dvc_refined, checked, tmpdir):
     csv_in = os.path.join(tmpdir, "al_foam4_pois.csv")
     write_pois_csv(csv_in, pois)
     prefix = os.path.join(tmpdir, "dvc_example")
-    wrapper = lattice3d.lattice_eval_3d
-    wrapper.launches = 0
-    wrapper.shapes = {}
-    wrapper.events = []
+    wrappers = dvc_wrappers()
+    start_counts(wrappers)
     info = {}
     out, timer = dvc.run("fftcc_icgn1", *paths, csv_in, prefix, "cuda",
                          stats=info)
-    launches = {"lattice_eval_3d": wrapper.launches}
-    kernel_ms = {"lattice_eval_3d": event_ms(wrapper)}
+    launches, kernel_ms = read_counts(wrappers)
     sinfo = {}
     strained, stimer = dvc.run("strain", f"{prefix}_fftcc_icgn1.csv",
                                out_prefix=prefix, device="cuda", stats=sinfo)
@@ -2531,9 +2722,9 @@ def phase_dvc_example(torch, ot, vref, vtar, dvc_refined, checked, tmpdir):
         icgn_stats=info["icgn_stats"], launches=launches,
         kernel_event_ms=kernel_ms)
     log(json.dumps({"dvc_example": res}))
-    check(launches["lattice_eval_3d"] > 0,
-          "the DVC example launched lattice_eval_3d no time")
-    checked_launches(kernel_ms, "lattice_eval_3d", checked, "the DVC example")
+    for name, v in launches.items():
+        check(v > 0, f"the DVC example launched {name} no time")
+        checked_launches(kernel_ms, name, checked[name], "the DVC example")
     check(same, f"the example's fftcc_icgn1 table differs from phase 5's: "
           f"{diff}")
     check(res["converged_frac"] >= 0.9, f"converged {res['converged_frac']}")
@@ -2550,12 +2741,11 @@ def phase_sharded(torch, ot, vref, vtar, dvc_seeded, dvc_refined, checked,
                   r_cmp=16):
     """ShardedICGN3D1 on an NCCL group of one (``make_mesh(1, axis="z")``)
     on phase 5's volumes and FFTCC3D seeds, against phase 5's ICGN3D1
-    table: codes equal, u/v/w within 1e-5 voxel; kernel 3 counted and its
-    launch shapes one of ``checked``.  Then 64 POIs at r=``r_cmp`` on cuda
+    table: codes equal, u/v/w within 1e-5 voxel; kernel 3 and the step
+    kernels counted and their launch shapes one of ``checked``.  Then 64 POIs at r=``r_cmp`` on cuda
     and on the same group's cpu mesh, four of them near the z faces (the z
     guards and the global edge guard fail them -3): codes equal, u/v/w
     within 1e-3 voxel.  Ends the process group it made."""
-    from opencorr_tpu_torch.ops import lattice3d
     from opencorr_tpu_torch.parallel import halo, mesh
 
     mesh_gpu = mesh.make_mesh(1, axis="z")
@@ -2566,16 +2756,13 @@ def phase_sharded(torch, ot, vref, vtar, dvc_seeded, dvc_refined, checked,
     m.set_images(vref, vtar)
     m.compute(table.map(lambda a: a[:512]), mesh_gpu)  # warm-up
     torch.cuda.synchronize()
-    wrapper = lattice3d.lattice_eval_3d
-    wrapper.launches = 0
-    wrapper.shapes = {}
-    wrapper.events = []
+    wrappers = dvc_wrappers()
+    start_counts(wrappers)
     m.stats.clear()
     t0 = time.perf_counter()
     out = ot.table_to_numpy(m.compute(table, mesh_gpu))
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"lattice_eval_3d": wrapper.launches}
-    kernel_ms = {"lattice_eval_3d": event_ms(wrapper)}
+    launches, kernel_ms = read_counts(wrappers)
     zs, zb = out["r"][:, 3], dvc_refined["r"][:, 3]
     codes = np.array_equal(np.where(zs < 0, zs, 1), np.where(zb < 0, zb, 1))
     d = float(np.abs(out["p"][:, [0, 4, 8]]
@@ -2624,9 +2811,9 @@ def phase_sharded(torch, ot, vref, vtar, dvc_seeded, dvc_refined, checked,
                    - outs["cpu"]["p"][both][:, [0, 4, 8]]).max()),
                cmp_converged=int(both.sum()), cmp_stats=stats)
     log(json.dumps({"sharded_dvc": res}))
-    check(launches["lattice_eval_3d"] > 0,
-          "the sharded path launched lattice_eval_3d no time")
-    checked_launches(kernel_ms, "lattice_eval_3d", checked, "sharded DVC")
+    for name, v in launches.items():
+        check(v > 0, f"the sharded path launched {name} no time")
+        checked_launches(kernel_ms, name, checked[name], "sharded DVC")
     check(codes, "sharded codes differ from phase 5's")
     check(d <= 1e-5, f"sharded u/v/w differ from phase 5's by {d}")
     check(res["cmp_codes_equal"], "sharded codes differ between cuda and cpu")
@@ -2834,20 +3021,21 @@ def phase_sift_host(torch, ot, checked, device_fa_codes, tmpdir,
                     shape=TORUS_SHAPE, grid=TORUS_GRID, dev="cuda"):
     """SIFT3D's host path (the default) through ``examples/dvc.run``'s
     ``sift_icgn1`` on phase 7's Torus-size pair and POI grid, after a
-    warm-up on a sub-volume.  Kernels 3 and 4 counted and timed per launch
-    in that run; afterwards every kernel-4 launch's layer is launched again
+    warm-up on a sub-volume.  Kernels 3 and 4 and the step kernels counted
+    and timed per launch in that run; afterwards every kernel-4 launch's layer is launched again
     at its own (count, crop), float32 and bfloat16, and held against the
     plain version on 256 keypoints spread over it.  Prints every layer's
     extrema, oriented and kept counts (no caps) and descriptor route, and
     the host path's stage times.  Gates: FeatureAffine3D's -1 share no
     more than phase 7's (device path) plus 0.01, converged >= 0.9, mean
     |u - u_true| < 0.01 voxel, the median matched displacement within 1
-    voxel, every kernel-3 launch shape one of ``checked``, every layer
-    with keypoints on the route its plan gives it.  ``shape``,
+    voxel, every kernel-3 and step-kernel launch shape one of
+    ``checked``, every layer with keypoints on the route its plan gives
+    it.  ``shape``,
     ``grid`` and ``dev`` let a rehearsal run it small on the cpu."""
     from opencorr_tpu_torch.examples import dvc
     from opencorr_tpu_torch.models import sift3d as tmodel
-    from opencorr_tpu_torch.ops import desc3d, lattice3d
+    from opencorr_tpu_torch.ops import desc3d
 
     t0 = time.perf_counter()
     ref, tar = sift_pair(torch, shape, seed=3, device=dev)
@@ -2864,25 +3052,22 @@ def phase_sift_host(torch, ot, checked, device_fa_codes, tmpdir,
             warm_csv, os.path.join(tmpdir, "warm"), dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = (desc3d.descriptor_hist, lattice3d.lattice_eval_3d)
-    for fn in wrappers:
-        fn.launches = 0
-        fn.shapes = {}
-        fn.events = []
+    wrappers = (desc3d.descriptor_hist, *dvc_wrappers())
+    start_counts(wrappers)
     info = {}
     with Kernel4Layers(tmodel.SIFT3D) as layers_k4:
         out, timer = dvc.run("sift_icgn1", ref, tar, csv_in,
                              os.path.join(tmpdir, "host"), dev, stats=info)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    kernel_ms = {fn.__name__: event_ms(fn) for fn in wrappers}
+    launches, kernel_ms = read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated()
     for name, v in launches.items():
         check(v > 0, f"the host SIFT path launched {name} no time")
     check(len(layers_k4) == launches["descriptor_hist"],
           f"{len(layers_k4)} kernel-4 layers recorded, "
           f"{launches['descriptor_hist']} launches")
-    checked_launches(kernel_ms, "lattice_eval_3d", checked,
-                     "the host SIFT path")
+    for fn in dvc_wrappers():
+        checked_launches(kernel_ms, fn.__name__, checked[fn.__name__],
+                         "the host SIFT path")
     stage_ms = {k: v * 1e3 for k, v in zip(timer.names, timer.seconds)}
     del ref, tar
     launch_recs = [kernel4_launch_check(torch, lay) for lay in layers_k4]
@@ -3402,6 +3587,12 @@ def main() -> int:
     checked_3d = {
         "lattice_eval_3d": {"x".join(map(str, (*r["shape"], r["d_wobble"])))
                             for r in records["lattice3d"]},
+        "lattice_prologue_3d": {"x".join(map(str, (*r["shape"], r["margin"],
+                                                   r["d_wobble"])))
+                                for r in records["prologue3d"]},
+        "residual_3d": {"x".join(map(str, (*r["shape"], guarded)))
+                        for r in records["residual3d"]
+                        for guarded in (False, True)},
         "descriptor_hist": {r["launch"] for r in records["desc"]}}
     checked_gathers = {"x".join(map(str, g)) for g in checked[0]}
     # kernels 1 and 2: phase 2's device ms a launch, by launch shape as the
@@ -3429,7 +3620,7 @@ def main() -> int:
     vref, vtar = ot.Image3D.from_array(vref8), ot.Image3D.from_array(vtar8)
     with tempfile.TemporaryDirectory() as tmpdir:
         dvc_res, dvc_launches, dvc_seeded, dvc_refined = phase_dvc(
-            torch, ot, vref, vtar, tmpdir)
+            torch, ot, vref, vtar, checked_3d, tmpdir)
     by_path = {"2d": dict(launches), "dvc": dict(dvc_launches)}
     launches.update(dvc_launches)
 
@@ -3478,15 +3669,13 @@ def main() -> int:
     # phase 13: the DVC example's fftcc_icgn1 and strain at al_foam4's size
     with tempfile.TemporaryDirectory() as tmpdir:
         dvx_res, dvx_launches = phase_dvc_example(
-            torch, ot, vref, vtar, dvc_refined,
-            checked_3d["lattice_eval_3d"], tmpdir)
+            torch, ot, vref, vtar, dvc_refined, checked_3d, tmpdir)
     by_path["dvc_example"] = dict(dvx_launches)
     del vref, vtar
 
     # phase 14: sharded DVC on a group of one
     shard_res, shard_launches = phase_sharded(
-        torch, ot, vref8, vtar8, dvc_seeded, dvc_refined,
-        checked_3d["lattice_eval_3d"])
+        torch, ot, vref8, vtar8, dvc_seeded, dvc_refined, checked_3d)
     by_path["sharded"] = dict(shard_launches)
     torch.cuda.empty_cache()
 
@@ -3509,7 +3698,7 @@ def main() -> int:
     # k-d tree on four paths' queues; (d) the tile eval on the DVC queue
     with tempfile.TemporaryDirectory() as tmpdir:
         host_res, host_launches, torus_kp = phase_sift_host(
-            torch, ot, checked_3d["lattice_eval_3d"], sift_res["fa3d_codes"],
+            torch, ot, checked_3d, sift_res["fa3d_codes"],
             tmpdir)
     by_path["sift_host"] = dict(host_launches)
     torch.cuda.empty_cache()
@@ -3525,7 +3714,8 @@ def main() -> int:
             "stage_ms"]["icgn3d1"])}))
 
     # phase 17: the records
-    # kernels 3 and 4: CUDA events a launch; kernels 1 and 2 estimated:
+    # kernels 3 and 4 and the step kernels: CUDA events a launch (a call
+    # of the residual's four); kernels 1 and 2 estimated:
     # phase 2's device ms a launch x launches, per shape (``ESTIMATED``)
     path_ms = {"2d": main_res["kernel_device_ms"],
                "dvc": dvc_res["kernel_event_ms"],
@@ -3565,6 +3755,14 @@ def main() -> int:
                 "opencorr_tpu_torch/csrc/lattice3d.cu",
                 "opencorr_tpu/ops/pallas_lattice.py:74",
                 records["lattice3d"], list(lattice_shape), offsets="path"),
+        summary("lattice_prologue_3d", "cuda",
+                "opencorr_tpu_torch/csrc/lattice3d.cu",
+                "none: fuses ICGN3D1's glue before kernel 3",
+                records["prologue3d"], list(lattice_shape)),
+        summary("residual_3d", "cuda",
+                "opencorr_tpu_torch/csrc/lattice3d.cu",
+                "none: fuses ICGN3D1's residual after kernel 3",
+                records["residual3d"], list(lattice_shape)),
         summary("descriptor_hist", "cuda",
                 "opencorr_tpu_torch/csrc/desc3d.cu",
                 "opencorr_tpu/ops/pallas_desc.py:87", records["desc"],

@@ -33,11 +33,10 @@ from typing import Optional
 import torch
 
 from ..utils import timing
-from . import bspline, linalg as linalg_ops, warp as warp_ops
+from . import bspline, icgn3d_step, linalg as linalg_ops, warp as warp_ops
 from .gather2d import gather_windows_2d, gather_windows_2d_plain
 from .lattice2d import lattice_eval_2d
 from .lattice3d import lattice_eval_3d
-from .window3d import gather_windows_3d
 
 # Queue width above which the GN loop runs two-phase: full width until
 # <= 1/4 of the POIs are active, then a compacted quarter-width tail.
@@ -682,142 +681,69 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
 WORKSET_ARRAYS_3D = 40
 
 
-def _lattice_eval3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
+def _windows3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
+               margin):
+    """The POIs' coefficient windows of half-extent r+margin on the seeded
+    center, clamped into the volume: their corners ``[wcx, wcy, wcz]``
+    ([N] int32 each) and sides ``(swx, swy, swz)``."""
+    dz_, dy_, dx_ = coeff.shape
+    sides = tuple(2 * (r + margin) + 1 for r in (rx, ry, rz))
+    return [torch.clamp(torch.floor(c + u).to(_I32) - (sw // 2), 0, dim - sw)
+            for c, u, sw, dim in ((xs, u_in, sides[0], dx_),
+                                  (ys, v_in, sides[1], dy_),
+                                  (zs, w_in, sides[2], dz_))], sides
+
+
+def _exact_window_eval3d(coeff, gxc, gyc, gzc, wc, sides):
+    """Every sample through the global coefficient volume (JAX
+    ``icgn.py:905-953``, whose tile LUT gives the same values bit for bit),
+    and -1 where a sample leaves the volume (or is NaN) or its localised
+    integer floor leaves [1, sw - 3] of its POI's window."""
+    oob = icgn3d_step.window_local_3d(gxc, gyc, gzc, *wc,
+                                      vol_shape=coeff.shape, sides=sides)[-1]
+    tval, _ = bspline.tricubic_eval(coeff, gxc, gyc, gzc)
+    return torch.where(oob, torch.full_like(tval, -1.0), tval)
+
+
+def _lattice_eval3d(coeff, xs, ys, zs, wc, sides, coords, *, rx, ry, rz,
                     margin, count, layer: str):
     """The windowed lattice eval of icgn3d1 (JAX ``icgn.py:899-1041``).
 
-    Per-POI coefficient windows of half-extent r+margin sit on the seeded
-    center; a sample leaving its window, or the volume, reads -1.  Every
-    iteration cuts a D=1 block from the window (padded by 1+D zeros per
-    side) at a base taken from the center sample and evaluates all samples
-    with the lattice kernel.  When any active, non-doomed sample wobbles
-    past D, the whole chunk is evaluated through the global coefficient
-    volume instead, as the JAX package does."""
-    dz_, dy_, dx_ = coeff.shape
-    dev = coeff.device
+    In the POIs' coefficient windows (``wc``, ``sides``), a sample leaving
+    its window, or the volume, reads -1.  Every iteration cuts a D=1 block
+    from the window (padded by 1+D zeros per side) at a base taken from the
+    center sample and evaluates all samples with the lattice kernel, its
+    inputs from the prologue (``icgn3d_step.lattice_prologue_3d``).  When
+    any active, non-doomed sample wobbles past D, the whole chunk is
+    evaluated through the global coefficient volume instead
+    (:func:`_exact_window_eval3d` on ``coords(wmat)``), as the JAX package
+    does.
+
+    Returns ``eval_tar(wmat, active) -> (tval [N, S], fail0)``: with the
+    lattice, ``fail0`` marks the POIs with an out-of-range sample (their
+    values are the kernel's, not -1); with the exact fallback, it is None
+    and those samples read -1."""
     n = xs.shape[0]
-    sx, sy, sz = 2 * rx + 1, 2 * ry + 1, 2 * rz + 1
-    s = sx * sy * sz
-    mx, my, mz = rx + margin, ry + margin, rz + margin
-    swx, swy, swz = 2 * mx + 1, 2 * my + 1, 2 * mz + 1
-    wcx = torch.clamp(torch.floor(xs + u_in).to(_I32) - mx, 0, dx_ - swx)
-    wcy = torch.clamp(torch.floor(ys + v_in).to(_I32) - my, 0, dy_ - swy)
-    wcz = torch.clamp(torch.floor(zs + w_in).to(_I32) - mz, 0, dz_ - swz)
-    fdt = coeff.dtype
-    wcxf, wcyf, wczf = (a.to(fdt)[:, None] for a in (wcx, wcy, wcz))
     D = 1
-    pw = 1 + D
-    wlat = 4 + 2 * D
-    elx, ely, elz = sx + wlat - 1, sy + wlat - 1, sz + wlat - 1
-    iix = torch.arange(sx, dtype=_I32, device=dev)
-    iiy = torch.arange(sy, dtype=_I32, device=dev)[:, None]
-    iiz = torch.arange(sz, dtype=_I32, device=dev)[:, None, None]
-    two = torch.full((), 2.0, dtype=fdt, device=dev)
-    neg = torch.full((), -1, dtype=_I32, device=dev)
 
-    def block(b0, wc, sw, el, dim):
-        """Volume coordinates [N, el] of a block at padded-window base
-        ``b0``, clamped into the volume, and whether each lies inside the
-        window (the zero padding outside it)."""
-        local = b0.long()[:, None] - pw + torch.arange(el, device=dev)
-        inside = (local >= 0) & (local < sw)
-        return (wc.long()[:, None] + local).clamp(0, dim - 1), inside
-
-    def cut_eblk(bz0, by0, bx0):
-        zc, zin = block(bz0, wcz, swz, elz, dz_)
-        yc, yin = block(by0, wcy, swy, ely, dy_)
-        xc, xin = block(bx0, wcx, swx, elx, dx_)
-        vals = coeff[zc[:, :, None, None], yc[:, None, :, None],
-                     xc[:, None, None, :]]
-        inside = (zin[:, :, None, None] & yin[:, None, :, None]
-                  & xin[:, None, None, :])
-        return torch.where(inside, vals, torch.zeros((), device=dev))
-
-    def eval_tar(gxc, gyc, gzc, active):
-        # global range guard: the float comparisons of the global eval
-        oob = ((gxc < 1) | (gyc < 1) | (gzc < 1)
-               | (gxc >= dx_ - 2) | (gyc >= dy_ - 2) | (gzc >= dz_ - 2)
-               | torch.isnan(gxc) | torch.isnan(gyc) | torch.isnan(gzc))
-        lx = torch.where(oob, two, gxc - wcxf)
-        ly = torch.where(oob, two, gyc - wcyf)
-        lz = torch.where(oob, two, gzc - wczf)
-        # integer window-exit test, on values bounded before the cast
-        exf = torch.floor(lx.clamp(-9.0, swx + 9.0)).to(_I32)
-        eyf = torch.floor(ly.clamp(-9.0, swy + 9.0)).to(_I32)
-        ezf = torch.floor(lz.clamp(-9.0, swz + 9.0)).to(_I32)
-        oob |= ((exf < 1) | (exf > swx - 3) | (eyf < 1) | (eyf > swy - 3)
-                | (ezf < 1) | (ezf > swz - 3))
-        shp = (n, sz, sy, sx)
-        xi, yi, zi = exf.reshape(shp), eyf.reshape(shp), ezf.reshape(shp)
-        fx = lx.reshape(shp) - xi.to(fdt)
-        fy = ly.reshape(shp) - yi.to(fdt)
-        fz = lz.reshape(shp) - zi.to(fdt)
-        del lx, ly, lz
-        oob4 = oob.reshape(shp)
-        # lattice base from the center sample, in padded window coords
-        bx0 = torch.clamp(xi[:, rz, ry, rx] + pw - rx - 1 - D, 0,
-                          swx + 2 * pw - elx)
-        by0 = torch.clamp(yi[:, rz, ry, rx] + pw - ry - 1 - D, 0,
-                          swy + 2 * pw - ely)
-        bz0 = torch.clamp(zi[:, rz, ry, rx] + pw - rz - 1 - D, 0,
-                          swz + 2 * pw - elz)
-        # out-of-range samples must contribute nothing: -1 matches no slot
-        pdx = torch.where(oob4, neg, xi + (pw - 1) - bx0[:, None, None, None]
-                          - iix)
-        pdy = torch.where(oob4, neg, yi + (pw - 1) - by0[:, None, None, None]
-                          - iiy)
-        pdz = torch.where(oob4, neg, zi + (pw - 1) - bz0[:, None, None, None]
-                          - iiz)
-        del xi, yi, zi
+    def eval_tar(wmat, active):
+        pdz, pdy, pdx, fz, fy, fx, eblk, doomed, wobble = \
+            icgn3d_step.lattice_prologue_3d(
+                wmat, xs, ys, zs, *wc, coeff, rx=rx, ry=ry, rz=rz,
+                margin=margin, d_wobble=D)
         # a POI with any out-of-range sample fails -3 this iteration
         # whatever its values, and a frozen POI's values are discarded:
         # neither may send the chunk to the exact fallback
-        doomed = oob4.flatten(1).any(dim=1)
-        live = (~doomed & active)[:, None, None, None]
-        wobble = (((pdx < 0) | (pdx > 2 * D) | (pdy < 0) | (pdy > 2 * D)
-                   | (pdz < 0) | (pdz > 2 * D)) & ~oob4 & live)
-        if timing.host_read(f"{layer}.sync.wobble", wobble.any(), bool):
+        if timing.host_read(f"{layer}.sync.wobble",
+                            (wobble & ~doomed & active).any(), bool):
+            del pdz, pdy, pdx, fz, fy, fx, eblk
             count["fallback"] += 1
             with timing.span(f"{layer}.exact"):
-                tval, _ = bspline.tricubic_eval(coeff, gxc, gyc, gzc)
-                return torch.where(oob, torch.full_like(tval, -1.0), tval)
-        del wobble
+                return _exact_window_eval3d(coeff, *coords(wmat), wc,
+                                            sides), None
         count["lattice"] += 1
-        val = lattice_eval_3d(cut_eblk(bz0, by0, bx0), pdz, pdy, pdx, fz, fy,
-                              fx, d_wobble=D)
-        return torch.where(oob4, torch.full_like(val, -1.0), val).reshape(n,
-                                                                          s)
-
-    return eval_tar
-
-
-def _tile_eval3d(coeff, xs, ys, zs, u_in, v_in, w_in, *, rx, ry, rz,
-                 margin):
-    """The windowed path's values without a tile layout (JAX
-    ``icgn.py:905-953``, ``eval_mode="tile"``): every sample through the
-    global coefficient volume (the JAX package's tile LUT gives the same
-    values bit for bit), and a sample whose localised integer floor leaves
-    [1, sw - 3] of its POI's coefficient window (half-extent r+margin on
-    the seeded center), or the volume, reads -1."""
-    dz_, dy_, dx_ = coeff.shape
-    fdt = coeff.dtype
-    bounds = []
-    for c, u, r, dim in ((xs, u_in, rx, dx_), (ys, v_in, ry, dy_),
-                         (zs, w_in, rz, dz_)):
-        sw = 2 * (r + margin) + 1
-        wc = torch.clamp(torch.floor(c + u).to(_I32) - (r + margin), 0,
-                         dim - sw)
-        bounds.append((wc.to(fdt)[:, None], sw))
-    two = torch.full((), 2.0, dtype=fdt, device=coeff.device)
-
-    def eval_tar(gxc, gyc, gzc, active):
-        # -1 and oob where a sample leaves the volume (or is NaN)
-        tval, oob = bspline.tricubic_eval(coeff, gxc, gyc, gzc)
-        for g, (wcf, sw) in zip((gxc, gyc, gzc), bounds):
-            loc = torch.where(oob, two, g - wcf)
-            e = torch.floor(loc.clamp(-9.0, sw + 9.0)).to(_I32)
-            oob |= (e < 1) | (e > sw - 3)
-        return torch.where(oob, torch.full_like(tval, -1.0), tval)
+        val = lattice_eval_3d(eblk, pdz, pdy, pdx, fz, fy, fx, d_wobble=D)
+        return val.reshape(n, -1), doomed
 
     return eval_tar
 
@@ -837,8 +763,8 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     global coefficient volume; an int M evaluates through per-POI windows
     of half-extent r+M, where a sample leaving its window reads as out of
     range (-3): with ``eval_mode="tile"`` at the global eval's values
-    (:func:`_tile_eval3d`), with any other mode (the default "lattice", as
-    in the JAX package) through the lattice kernel
+    (:func:`_exact_window_eval3d`), with any other mode (the default
+    "lattice", as in the JAX package) through the lattice kernel
     (:func:`_lattice_eval3d`).  The
     convergence norm takes the displacement increments only
     (oc_icgn.cpp:1445).  ``z_guard_lo``/``z_guard_hi`` (floats; None or
@@ -846,18 +772,16 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     DVC path needs on a halo-extended block: a warped sample with
     z < lo or z >= hi fails its POI with -3.  ``stats``, when given, counts
     iterations, lattice launches and fallback iterations; ``layer`` names
-    the spans and host reads, as in :func:`icgn2d`.  It computes in
-    the volumes' dtype: float32 as the package runs it, float64 for a
-    reference replay on the CPU."""
+    the spans and host reads, as in :func:`icgn2d`.  It computes in the
+    volumes' dtype: float32 as the package runs it, and on a card always
+    (the kernels take float32 alone), float64 for a reference replay on
+    the CPU."""
     z_guarded = z_guard_lo is not None or z_guard_hi is not None
     z_lo = -float("inf") if z_guard_lo is None else float(z_guard_lo)
     z_hi = float("inf") if z_guard_hi is None else float(z_guard_hi)
     dz_, dy_, dx_ = ref_vol.shape
     dev = ref_vol.device
     fdt = ref_vol.dtype
-    n = xs.shape[0]
-    sx, sy, sz = 2 * rx + 1, 2 * ry + 1, 2 * rz + 1
-    s = sx * sy * sz
     count = stats if stats is not None else collections.Counter()
 
     with timing.span(f"{layer}.setup"):
@@ -870,79 +794,46 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
                  & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in)
                  & ~torch.isnan(w_in))
 
-        x0 = torch.clamp(xs.to(_I32) - rx, 0, dx_ - sx)  # (int) truncation
-        y0 = torch.clamp(ys.to(_I32) - ry, 0, dy_ - sy)
-        z0 = torch.clamp(zs.to(_I32) - rz, 0, dz_ - sz)
+        # Reference subsets, their zero-mean norms and the inverse Hessians
+        # of the steepest-descent images (oc_icgn.cpp:1314-1325).
+        ref = icgn3d_step.reference_3d(gx, gy, gz, ref_vol, xs, ys, zs,
+                                       rx=rx, ry=ry, rz=rz)
+        grid = icgn3d_step.local_grid_3d(rx, ry, rz, fdt, dev)
 
-        def subsets(vol):
-            return gather_windows_3d(vol, z0, y0, x0, sz, sy, sx).reshape(n, s)
-
-        # Reference subset and its zero-mean norm.
-        ref_sub = subsets(ref_vol)
-        ref_zm = ref_sub - ref_sub.mean(dim=1, keepdim=True)
-        del ref_sub
-        rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
-
-        # Local grid, x fastest, then y, then z.
-        zg, yg, xg = torch.meshgrid(
-            *(torch.arange(-r, r + 1, dtype=fdt, device=dev)
-              for r in (rz, ry, rx)), indexing="ij")
-        xl, yl, zl = (a.reshape(1, s) for a in (xg, yg, zg))
-
-        # Steepest-descent images in the 3D p order (oc_icgn.cpp:1314-1325),
-        # as [N, 12, S], and the Hessian.
-        sd = torch.empty((n, 12, s), dtype=fdt, device=dev)
-        for a, g in enumerate((gx, gy, gz)):
-            gs = subsets(g)
-            sd[:, 4 * a] = gs
-            for b, m in enumerate((xl, yl, zl)):
-                sd[:, 4 * a + 1 + b] = gs * m
-        del gs
-        hess = torch.bmm(sd, sd.transpose(1, 2))
-        hinv = linalg_ops.inv_small(hess)
+        def coords(wmat):
+            return tuple(icgn3d_step.warped_3d(wmat, row, c, grid)
+                         for row, c in enumerate((xs, ys, zs)))
 
         wmat0 = warp_ops.warp3d1_from_p(p_in)
 
-        if window_margin is not None and eval_mode == "tile":
-            eval_tar = _tile_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
-                                    rx=rx, ry=ry, rz=rz, margin=window_margin)
-        elif window_margin is not None:
-            eval_tar = _lattice_eval3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
-                                       rx=rx, ry=ry, rz=rz,
-                                       margin=window_margin,
-                                       count=count, layer=layer)
+        if window_margin is None:
+            def eval_tar(wmat, active):
+                return bspline.tricubic_eval(tar_coeff, *coords(wmat))[0], None
         else:
-            def eval_tar(gxc, gyc, gzc, active):
-                return bspline.tricubic_eval(tar_coeff, gxc, gyc, gzc)[0]
+            wc, sides = _windows3d(tar_coeff, xs, ys, zs, u_in, v_in, w_in,
+                                   rx=rx, ry=ry, rz=rz, margin=window_margin)
+            if eval_mode == "tile":
+                def eval_tar(wmat, active):
+                    return _exact_window_eval3d(tar_coeff, *coords(wmat), wc,
+                                                sides), None
+            else:
+                eval_tar = _lattice_eval3d(
+                    tar_coeff, xs, ys, zs, wc, sides, coords, rx=rx, ry=ry,
+                    rz=rz, margin=window_margin, count=count, layer=layer)
+
+    z_guard = (z_lo, z_hi) if z_guarded else None
 
     def body(state):
         wmat, active, it, dpn, znssd, oob_fail = state
-
-        def coord(row, c):
-            return c[:, None] + (wmat[:, row, 0, None] * xl
-                                 + wmat[:, row, 1, None] * yl
-                                 + wmat[:, row, 2, None] * zl
-                                 + wmat[:, row, 3, None])
-
-        gzc = coord(2, zs)
         with timing.span(f"{layer}.eval"):
-            tval = eval_tar(coord(0, xs), coord(1, ys), gzc, active)
+            tval, fail0 = eval_tar(wmat, active)
         # A negative sample, the -1 sentinel included, fails the POI, as
         # does a sample past the z guards.
-        fail_any = torch.any(tval < 0.0, dim=1)
-        if z_guarded:
-            fail_any |= torch.any((gzc < z_lo) | (gzc >= z_hi), dim=1)
-        del gzc
-        fail_now = fail_any & active
-
-        tar_zm = tval - tval.mean(dim=1, keepdim=True)
+        fail_any, znssd_new, num = icgn3d_step.residual_3d(
+            tval, fail0, ref, wmat, zs, rx=rx, ry=ry, rz=rz, z_guard=z_guard)
         del tval
-        tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
-        err = tar_zm * (rn / tn)[:, None] - ref_zm
-        del tar_zm
-        znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
-        num = torch.bmm(sd, err[:, :, None])  # [N, 12, 1]
-        dp = torch.bmm(hinv, num)[:, :, 0]
+        fail_now = fail_any & active
+        dp = torch.bmm(ref.hinv, num[:, :, None])[:, :, 0]
         winc = warp_ops.warp3d1_from_p(dp)
         wmat_new = torch.bmm(wmat, linalg_ops.inv_small(winc))
         # displacement-only convergence norm (oc_icgn.cpp:1445)

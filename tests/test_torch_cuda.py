@@ -18,9 +18,14 @@ that varies from run to run), on white noise and on blurred volumes.
 Gather and lattice also at the planar suite's r=12 shapes, the lattice
 there ``==``; the gather at the reconstruction search's chunk.  The DVC modules, the SIFT3D slice, the
 planar refiners, the z-guarded icgn3d1 and ShardedICGN3D1 on a group of
-one: cuda against cpu on small pairs."""
+one: cuda against cpu on small pairs.  ICGN3D1's step kernels: the
+prologue ``==`` its plain version at one DVC chunk and at odd shapes, the
+residual within a stated tolerance of its plain version and equal run to
+run, and ``icgn3d1`` through both (with and without z guards) within
+1e-5 voxel of the cpu."""
 
 import collections
+import dataclasses
 
 import numpy as np
 import pytest
@@ -889,3 +894,221 @@ def test_sharded_icgn3d1_one_rank_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(outs["cuda"]["p"][:, [0, 4, 8]],
                                outs["cpu"]["p"][:, [0, 4, 8]], rtol=0,
                                atol=1e-4)
+
+
+def _dvc_step_queue(seed, device):
+    """One chunk of the DVC cell as the prologue sees it: 441 POIs of the
+    al_foam4 grid (7 x 7 x 9 at step 5 from (35, 35, 60)) at r=30 on a
+    700 x 100 x 100 coefficient volume, windows of margin 8 on seeds within
+    a voxel, and warps near the identity (0.5% strain, a voxel of
+    translation) with every tenth POI pushed past its window or wobbling,
+    and one NaN."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(60 + 5 * np.arange(9), 35 + 5 * np.arange(7),
+                          35 + 5 * np.arange(7), indexing="ij")
+    xs, ys, zs = (a.reshape(-1).astype(np.float32) for a in (x, y, z))
+    n = xs.shape[0]
+    u = rng.uniform(-1, 1, (3, n))
+    wmat = np.tile(np.eye(4), (n, 1, 1))
+    wmat[:, :3, :3] += rng.uniform(-0.005, 0.005, (n, 3, 3))
+    wmat[:, :3, 3] = u.T + rng.uniform(-0.3, 0.3, (n, 3))
+    wmat[::10, 2, 2] += 0.06  # wobble past D=1
+    wmat[5::10, 0, 3] += rng.choice([-9.0, 9.0], len(wmat[5::10]))  # exits
+    wmat[7, 1, 3] = np.nan
+    dims = (700, 100, 100)
+    wc = []
+    for c, uu, dim in ((xs, u[0], dims[2]), (ys, u[1], dims[1]),
+                       (zs, u[2], dims[0])):
+        c_t = torch.from_numpy(c)
+        u_t = torch.from_numpy(uu.astype(np.float32))
+        wc.append(torch.clamp(torch.floor(c_t + u_t).to(torch.int32) - 38,
+                              0, dim - 77).to(device))
+    coeff = torch.from_numpy(rng.uniform(-30, 290, dims).astype(np.float32))
+    t = lambda a: torch.from_numpy(np.float32(a)).to(device)
+    return t(wmat), t(xs), t(ys), t(zs), wc, coeff.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dvc_chunk", "odd"])
+def test_icgn3d_prologue_kernel_equals_plain(cuda, case):
+    """The prologue kernel against its plain version on the card: offsets,
+    fractions, blocks and both flags equal, bit for bit, at one chunk of
+    the DVC cell (441 x 61^3, margin 8) and at a small odd shape (r = 4, 3,
+    2; margin 2 and 4) with NaN warps, exits through each face and
+    wobble."""
+    from opencorr_tpu_torch.ops import icgn3d_step
+    from test_torch_icgn3d_step import RX, RY, RZ, _queue
+
+    if case == "dvc_chunk":
+        runs = [(*_dvc_step_queue(3, cuda), dict(rx=30, ry=30, rz=30,
+                                                 margin=8))]
+    else:
+        runs = []
+        for margin in (2, 4):
+            wmat, xs, ys, zs, wc, coeff, _ = _queue(torch.float32, margin,
+                                                    seed=margin)
+            runs.append((*(a.to(cuda) for a in (wmat, xs, ys, zs)),
+                         [a.to(cuda) for a in wc], coeff.to(cuda),
+                         dict(rx=RX, ry=RY, rz=RZ, margin=margin)))
+    names = ("pdz", "pdy", "pdx", "fz", "fy", "fx", "eblk", "doomed",
+             "wobble")
+    for wmat, xs, ys, zs, wc, coeff, kw in runs:
+        before = icgn3d_step.lattice_prologue_3d.launches
+        got = icgn3d_step.lattice_prologue_3d(wmat, xs, ys, zs, *wc, coeff,
+                                              d_wobble=1, **kw)
+        torch.cuda.synchronize()
+        assert icgn3d_step.lattice_prologue_3d.launches == before + 1
+        want = icgn3d_step.lattice_prologue_3d_plain(
+            wmat, xs, ys, zs, *wc, coeff, d_wobble=1, **kw)
+        for name, g, w in zip(names, got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g, w), name
+        doomed, wobble = got[7], got[8]
+        assert doomed.any() and (~doomed).any() and wobble.any()
+        if kw["margin"] > 2:  # a 2-voxel margin holds no more drift than D=1
+            assert (wobble & ~doomed).any()
+
+
+def _step_reference(seed, n, r, device, margin=8):
+    """Volumes, a queue and its reference side for the residual: the
+    gradients of a speckle volume, values near a shifted copy of the
+    reference subsets, and those subsets' zero-mean values and
+    steepest-descent images, which the card's reference side frees."""
+    from scipy.ndimage import gaussian_filter
+    from opencorr_tpu_torch.ops import gradient, icgn3d_step
+
+    rng = np.random.default_rng(seed)
+    shape = (2 * r + 2 * margin + 24, 2 * r + 2 * margin + 10,
+             2 * r + 2 * margin + 12)
+    base = gaussian_filter(rng.standard_normal(shape), 1.5)
+    ref = torch.from_numpy(np.float32(base / base.std() * 20 + 128)).to(
+        device)
+    gx, gy, gz = (getattr(gradient, f"gradient_{a}_3d")(ref).contiguous()
+                  for a in "xyz")
+    lo = r + margin + 1
+    c = [rng.uniform(lo, d - lo, n).astype(np.float32)
+         for d in shape[::-1]]
+    xs, ys, zs = (torch.from_numpy(a).to(device) for a in c)
+    side = icgn3d_step.reference_3d(gx, gy, gz, ref, xs, ys, zs, rx=r,
+                                    ry=r, rz=r)
+    assert side.zm is None and side.sd is None
+    _, zm, sd = icgn3d_step._subsets_3d(side, r, r, r)
+    wmat = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    wmat[:, :3, 3] = rng.uniform(-0.5, 0.5, (n, 3))
+    wmat[:, 2, 2] += 0.02
+    wmat = torch.from_numpy(wmat).to(device)
+    zm_h = zm.cpu().numpy()
+    tval = zm_h[rng.permutation(n)] * 0.3 + zm_h * 0.7 + 128 + rng.normal(
+        0, 2, zm_h.shape)
+    tval = torch.from_numpy(np.float32(tval)).to(device)
+    return side, zm, sd, wmat, zs, tval
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(441, 30), (37, 7)])
+def test_icgn3d_residual_kernel_vs_plain(cuda, n, r):
+    """The residual kernels against the plain version on the card, with
+    and without ``fail0`` and z guards: fail flags equal; ZNSSD within
+    1e-5 relative and each of the 12 sums within 2e-5 of the sum of its
+    terms' magnitudes, because the kernels add the same terms in another
+    order (the mean and the norm too, which shifts every error term by a
+    rounding); and two runs equal bit for bit."""
+    from opencorr_tpu_torch.ops import icgn3d_step
+
+    side, zm, sd, wmat, zs, tval = _step_reference(4, n, r, cuda)
+    tval[3, 1000 % tval.shape[1]] = -1.0  # a failing POI
+    fail0 = torch.zeros(n, dtype=torch.bool, device=cuda)
+    fail0[5] = True
+    zmid = float(zs.median())
+    full = dataclasses.replace(side, zm=zm, sd=sd)
+    # the error image and the magnitudes of the sums' terms, in float64
+    t64 = tval.double()
+    tz = t64 - t64.mean(1, keepdim=True)
+    err = tz * (side.rn.double() / tz.norm(dim=1))[:, None] - zm
+    scale = torch.bmm(sd.double().abs(), err.abs()[:, :, None])[:, :, 0]
+    guard = (zmid - r - 3.0, zmid + r + 40.0)  # fails POIs below zmid - 3
+    for fail0_, guard in ((None, None), (fail0, guard)):
+        want = icgn3d_step.residual_3d_plain(tval, fail0_, full, wmat, zs,
+                                             rx=r, ry=r, rz=r, z_guard=guard)
+        before = icgn3d_step.residual_3d.launches
+        got = icgn3d_step.residual_3d(tval, fail0_, side, wmat, zs, rx=r,
+                                      ry=r, rz=r, z_guard=guard)
+        again = icgn3d_step.residual_3d(tval, fail0_, side, wmat, zs, rx=r,
+                                        ry=r, rz=r, z_guard=guard)
+        torch.cuda.synchronize()
+        assert icgn3d_step.residual_3d.launches == before + 2
+        assert torch.equal(got[0], want[0])
+        assert want[0][3] and (~want[0]).sum() >= n // 4
+        if guard is not None:
+            assert want[0][5] and int(want[0].sum()) > 2
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        ok = ~want[0]
+        torch.testing.assert_close(got[1][ok], want[1][ok], rtol=1e-5,
+                                   atol=0)
+        gap = (got[2] - want[2]).double().abs()[ok]
+        assert (gap <= 2e-5 * scale[ok]).all(), float((gap / scale[ok]).max())
+
+
+def _fused_pair():
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    rng = np.random.default_rng(21)
+    shape = (56, 50, 52)
+    base = gaussian_filter(rng.standard_normal(shape), 1.5)
+    ref = np.clip(np.round(base / base.std() * 20 + 128), 0, 255)
+    zz, yy, xx = np.mgrid[0:56, 0:50, 0:52].astype(np.float64)
+    tar = map_coordinates(ref, [zz - 0.5 - 0.004 * (zz - 28), yy + 0.3,
+                                xx - 0.4], order=3, mode="nearest")
+    return ref.astype(np.float32), np.round(tar).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guards", [None, (10.0, 45.0)])
+def test_fused_icgn3d1_cuda_matches_cpu(cuda, guards):
+    """icgn3d1 through the prologue, kernel 3 and the residual kernels on
+    the card against the plain path on the cpu, on the same float32
+    gradients and coefficients: codes equal, u/v/w within 1e-5 voxel,
+    every iteration through the residual kernels; with z guards some POIs
+    fail -3.  A float64 volume on the card raises."""
+    from opencorr_tpu_torch.ops import bspline, gradient, icgn, icgn3d_step
+
+    ref, tar = _fused_pair()
+    tref = torch.from_numpy(ref)
+    prep = [*(getattr(gradient, f"gradient_{a}_3d")(tref) for a in "xyz"),
+            tref, bspline.tricubic_prepare(torch.from_numpy(tar))]
+    rng = np.random.default_rng(8)
+    n, r = 40, 8
+    xs, ys = (rng.uniform(18, 32, n).astype(np.float32) for _ in range(2))
+    zs = rng.uniform(17, 39, n).astype(np.float32)
+    p = np.zeros((n, 12), np.float32)
+    p[:, 0], p[:, 4], p[:, 8] = 0.2, -0.1, 0.3  # the truth: 0.4, -0.3, 0.5
+    kw = dict(rx=r, ry=r, rz=r, window_margin=8)
+    if guards is not None:
+        kw.update(z_guard_lo=guards[0], z_guard_hi=guards[1])
+    outs, stats = {}, {}
+    before = icgn3d_step.residual_3d.launches
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.as_tensor(a).to(dev)
+        stats[dev] = collections.Counter()
+        outs[dev] = [a.cpu().numpy() for a in icgn.icgn3d1(
+            *(a.to(dev) for a in prep), t(xs), t(ys), t(zs), t(p),
+            t(np.zeros(n, np.float32)), 0.001, 10.0, stats=stats[dev],
+            **kw)]
+    assert (icgn3d_step.residual_3d.launches - before
+            == stats["cuda"]["iter"] > 0)
+    assert stats["cuda"]["lattice"] == stats["cpu"]["lattice"]
+    zc, zp = outs["cuda"][4], outs["cpu"][4]
+    np.testing.assert_array_equal(np.where(zc < 0, zc, 1),
+                                  np.where(zp < 0, zp, 1))
+    assert (zp > 0.9).sum() >= n // 2
+    if guards is not None:
+        assert (zp == -3.0).sum() >= 3
+    np.testing.assert_allclose(outs["cuda"][0][:, [0, 4, 8]],
+                               outs["cpu"][0][:, [0, 4, 8]], rtol=0,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="unsupported"):
+        icgn.icgn3d1(*(a.to(cuda, torch.float64) for a in prep),
+                     *(torch.as_tensor(a).to(cuda, torch.float64)
+                       for a in (xs, ys, zs, p, np.zeros(n))),
+                     0.001, 10.0, **kw)
