@@ -2336,11 +2336,11 @@ def phase_stereo(torch, ot, views, pts, truth, scene, device_ms, tmpdir):
                                 truth["t2"])[0]))}
     with open(csv) as f:
         n_lines = sum(1 for _ in f)
-    # a cap hit: more candidates than k_raw, or more refined keypoints or
-    # orientation instances than k_kp (the instances saturate at k_kp)
+    # a cap passed: more candidates than k_raw, or more refined keypoints
+    # or orientation instances than k_kp (the octave's buffers grow)
     caps = [st for st in info["sift2d_octaves"]
             if st["candidates"] > st["k_raw"] or st["keypoints"] > st["k_kp"]
-            or st["instances"] >= st["k_kp"]]
+            or st["instances"] > st["k_kp"]]
     res = dict(
         size=list(STEREO_SIZE), pois=int(len(pts)),
         plane_point_mm=[float(x) for x in scene.x0], reach_px=reach,

@@ -4,6 +4,7 @@ matched keypoints, by RANSAC over the keypoints near each POI."""
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import weakref
 from typing import Optional
@@ -13,6 +14,7 @@ import torch
 
 from ..data import poi as poi_mod
 from ..ops import feature_affine as fa_ops
+from ..utils import timing
 from ..utils.precision import DeviceLike, resolve_device
 from . import base
 
@@ -134,10 +136,16 @@ class _FeatureAffine:
     last candidate are dropped before the RANSAC, which changes no result.
     The RANSAC draws come from a ``torch.Generator`` seeded with ``seed``
     on the CPU, so a queue gets the same draws on every device.
-    ``chunk_size`` POIs run at once."""
+    ``chunk_size`` POIs run at once.  ``compute`` runs in the span
+    ``feature_affine.compute``, its RANSAC in ``feature_affine.ransac``;
+    ``stats`` counts the POIs that end with -1 (``insufficient``) and -2
+    (``inconsistent``), read once a compute, and in self-adaptive mode
+    those moved to the centre of their keypoints' box (``moved``)."""
 
     dim = 0
     table_type = None
+    zncc_col = 0
+    layer = "feature_affine"
 
     def __init__(self, radii, neighbor_min: int, ransac: "RansacConfig",
                  k_cap: int, seed: int, chunk_size: Optional[int],
@@ -158,6 +166,7 @@ class _FeatureAffine:
         self.tar_kp: Optional[np.ndarray] = None
         self._tree = None
         self._cand = _CandidateCache()
+        self.stats = collections.Counter()
 
     def set_search(self, radius: float, neighbor_min: int):
         self.neighbor_search_radius = float(radius)
@@ -228,8 +237,20 @@ class _FeatureAffine:
         """The guess for every POI of ``table``.  ``draws`` [D+1, N, trials]
         integer RANSAC draws in [0, 2^30) replace the module's own
         (``ops.feature_affine.ransac_draws(seed, N, trials, D+1)``)."""
-        self._ready(table)
-        return self._run(table, *self._candidates(table), draws)
+        with timing.computing(self.layer, self.stats):
+            self._ready(table)
+            return self._counted(self._run(table, *self._candidates(table),
+                                           draws))
+
+    def _counted(self, table):
+        """``table``, its -1 and -2 codes counted in ``stats``."""
+        z = table.r[:, self.zncc_col]
+        few, bad = timing.host_read(
+            f"{self.layer}.sync.codes",
+            torch.stack([(z == -1.0).sum(), (z == -2.0).sum()]))
+        self.stats["insufficient"] += int(few)
+        self.stats["inconsistent"] += int(bad)
+        return table
 
     def _ready(self, table) -> None:
         if self.ref_kp is None:
@@ -260,8 +281,9 @@ class _FeatureAffine:
             return self._ransac(ref_kp, tar_kp, t, idx_c, cand_c, en_c,
                                 draws_c.transpose(0, 1), tr, sm)
 
-        return base.chunked(run, table, self.chunk_size, idx, cand, enough,
-                            draws.transpose(0, 1))
+        with timing.span(f"{self.layer}.ransac"):
+            return base.chunked(run, table, self.chunk_size, idx, cand,
+                                enough, draws.transpose(0, 1))
 
 
 class FeatureAffine2D(_FeatureAffine):
@@ -274,6 +296,7 @@ class FeatureAffine2D(_FeatureAffine):
 
     dim = 2
     table_type = poi_mod.POITable2D
+    zncc_col = poi_mod.R_ZNCC
 
     def __init__(self, radius_x: int, radius_y: int, k_cap: int = 128,
                  seed: int = 0, chunk_size: Optional[int] = 16384,
@@ -297,8 +320,13 @@ class FeatureAffine2D(_FeatureAffine):
                 draws: Optional[torch.Tensor] = None) -> poi_mod.POITable2D:
         if not self.self_adaptive:
             return super().compute(table, draws)
-        self._ready(table)
-        t, knn = self._adapt_subsets(table)
+        with timing.computing(self.layer, self.stats):
+            self._ready(table)
+            return self._counted(self._adaptive(table, draws))
+
+    def _adaptive(self, table, draws):
+        with timing.span(f"{self.layer}.adapt"):
+            t, knn = self._adapt_subsets(table)
         n, k = knn.shape
         sm = self.ransac.sample_number
         if self.neighbor_backend == "device":
@@ -339,6 +367,7 @@ class FeatureAffine2D(_FeatureAffine):
         y_min, y_max = ky.min(1), ky.max(1)
         half = np.float32(0.5)
         inside = (xs >= x_min) & (xs <= x_max) & (ys >= y_min) & (ys <= y_max)
+        self.stats["moved"] += int((~inside).sum())
         srx = np.where(
             inside,
             np.maximum(np.abs(x_max - xs), np.abs(xs - x_min)).astype(np.int32),
@@ -374,6 +403,7 @@ class FeatureAffine3D(_FeatureAffine):
 
     dim = 3
     table_type = poi_mod.POITable3D
+    zncc_col = poi_mod.R3_ZNCC
 
     def __init__(self, radius_x: int, radius_y: int, radius_z: int,
                  k_cap: int = 128, seed: int = 0,

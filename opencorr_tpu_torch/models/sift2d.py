@@ -14,6 +14,7 @@ reference's own detector, and matches on the device as above; it needs
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import List, Optional
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import sift2d as sift_ops
+from ..utils import timing
 from ..utils.precision import DeviceLike, resolve_device
 from . import base
 
@@ -47,7 +49,16 @@ class SIFT2D:
     ``"tpu"``); None reads ``OPENCORR_SIFT2D``.  ``octave_stats`` lists,
     per image and octave, the device detector's candidate count beside its
     cap ``k_raw`` and the refined keypoints and orientation instances
-    beside ``k_kp`` (a cap hit changes which keypoints exist)."""
+    beside ``k_kp``; a count past its cap grows the octave's buffers, so
+    every keypoint is kept and matched from.  ``stats`` counts, over every
+    compute, the keypoint instances matched from (``keypoints``), the
+    matches (``matches``) and the caps passed (``cap_hits``: an octave's
+    candidates past ``k_raw``, its keypoints or orientation instances past
+    ``k_kp``); ``compute`` runs in the span
+    ``sift2d.compute``, each image's detection in ``sift2d.detect`` and
+    the matching in ``sift2d.match``."""
+
+    layer = sift_ops.LAYER
 
     def __init__(self, backend: Optional[str] = None,
                  device: DeviceLike = None):
@@ -61,6 +72,7 @@ class SIFT2D:
         self.ref_matched_kp: Optional[np.ndarray] = None  # [K, 2] (x, y)
         self.tar_matched_kp: Optional[np.ndarray] = None
         self.octave_stats: List[dict] = []
+        self.stats = collections.Counter()
 
     def set_sift_config(self, config: Sift2dConfig) -> None:
         self.sift_config = config
@@ -77,29 +89,41 @@ class SIFT2D:
 
     def _detect(self, img, which: str):
         cfg = self.sift_config
-        res, counts = sift_ops.detect_and_compute(
-            img, n_octave_layers=cfg.n_octave_layers,
-            contrast_threshold=cfg.contrast_threshold,
-            edge_threshold=cfg.edge_threshold, sigma=cfg.sigma)
+        with timing.span(f"{self.layer}.detect"):
+            res, counts = sift_ops.detect_and_compute(
+                img, n_octave_layers=cfg.n_octave_layers,
+                contrast_threshold=cfg.contrast_threshold,
+                edge_threshold=cfg.edge_threshold, sigma=cfg.sigma)
         self.octave_stats += [dict(image=which, **c) for c in counts]
-        return res
+        self.stats["cap_hits"] += sum(
+            (c["candidates"] > c["k_raw"]) + (c["keypoints"] > c["k_kp"])
+            + (c["instances"] > c["k_kp"]) for c in counts)
+        return res, sum(c["instances"] for c in counts)
 
     def compute_device(self):
         """Detection, compaction and exact matching on the device, with no
         transfer to the host: (keep [K], idx [K], rx, ry, tx, ty)."""
-        def compact(res):
-            k_total = min(sum(r[0].shape[0] for r in res), 32768)
-            k_total = -(-k_total // 2048) * 2048
+        def compact(img, which):
+            res, found = self._detect(img, which)
+            self.stats["keypoints"] += found
+            # every instance, in whole blocks of 2,048
+            k_total = -(-max(found, 1) // 2048) * 2048
             return sift_ops.compact_octaves(res, k_total)
 
-        rx, ry, rdesc, rok = compact(self._detect(self.ref_img, "ref"))
-        tx, ty, tdesc, tok = compact(self._detect(self.tar_img, "tar"))
-        keep, idx = sift_ops.match_device(rdesc, rok, tdesc, tok,
-                                          self.matching_ratio)
+        rx, ry, rdesc, rok = compact(self.ref_img, "ref")
+        tx, ty, tdesc, tok = compact(self.tar_img, "tar")
+        with timing.span(f"{self.layer}.match"):
+            keep, idx = sift_ops.match_device(rdesc, rok, tdesc, tok,
+                                              self.matching_ratio)
         return keep, idx, rx, ry, tx, ty
 
     def compute(self) -> None:
         self.octave_stats = []
+        with timing.computing(self.layer, self.stats):
+            self._compute()
+            self.stats["matches"] += len(self.ref_matched_kp)
+
+    def _compute(self) -> None:
         cfg = self.sift_config
         if self.backend == "opencv":
             self._compute_opencv()
@@ -107,20 +131,21 @@ class SIFT2D:
         if cfg.n_features > 0:
             # retainBest sorts responses on the host
             rp, rd, _, _, rr = sift_ops.gather_keypoints(
-                self._detect(self.ref_img, "ref"))
+                self._detect(self.ref_img, "ref")[0])
             tp, td, _, _, tr = sift_ops.gather_keypoints(
-                self._detect(self.tar_img, "tar"))
+                self._detect(self.tar_img, "tar")[0])
             rp, rd = _retain_best(rp, rd, rr, cfg.n_features)
             tp, td = _retain_best(tp, td, tr, cfg.n_features)
+            self.stats["keypoints"] += len(rp) + len(tp)
             keep, idx = self._match_host(rd, td)
             self.ref_matched_kp = rp[keep]
             self.tar_matched_kp = tp[idx[keep]]
             return
         keep, idx, rx, ry, tx, ty = self.compute_device()
-        keep = keep.cpu().numpy()
-        idx = idx.cpu().numpy()
-        rxy = torch.stack([rx, ry], -1).cpu().numpy()
-        txy = torch.stack([tx, ty], -1).cpu().numpy()
+        keep = self._read("keep", keep)
+        idx = self._read("idx", idx)
+        rxy = self._read("ref_xy", torch.stack([rx, ry], -1))
+        txy = self._read("tar_xy", torch.stack([tx, ty], -1))
         self.ref_matched_kp = rxy[keep]
         self.tar_matched_kp = txy[idx[keep]]
 
@@ -139,11 +164,12 @@ class SIFT2D:
             edgeThreshold=cfg.edge_threshold, sigma=cfg.sigma)
         found = []
         for img in (self.ref_img, self.tar_img):
-            u8 = img.clamp(0, 255).to(torch.uint8).cpu().numpy()
+            u8 = self._read("image", img.clamp(0, 255).to(torch.uint8))
             kp, desc = sift.detectAndCompute(u8, None)
             found.append((np.array([k.pt for k in kp], np.float32)
                           .reshape(-1, 2), desc))
         (ref_pts, ref_desc), (tar_pts, tar_desc) = found
+        self.stats["keypoints"] += len(ref_pts) + len(tar_pts)
         if ref_desc is None or tar_desc is None or len(ref_pts) == 0 \
                 or len(tar_pts) < 2:
             self.ref_matched_kp = np.zeros((0, 2), np.float32)
@@ -163,9 +189,14 @@ class SIFT2D:
         r, t = pad(ref_desc, n_ref), pad(tar_desc, n_tar)
         r_ok = torch.arange(r.shape[0], device=self.device) < n_ref
         t_ok = torch.arange(t.shape[0], device=self.device) < n_tar
-        keep, idx = sift_ops.match_device(r, r_ok, t, t_ok,
-                                          self.matching_ratio)
-        return keep.cpu().numpy()[:n_ref], idx.cpu().numpy()[:n_ref]
+        with timing.span(f"{self.layer}.match"):
+            keep, idx = sift_ops.match_device(r, r_ok, t, t_ok,
+                                              self.matching_ratio)
+        return self._read("keep", keep)[:n_ref], self._read("idx", idx)[:n_ref]
+
+    def _read(self, what: str, value: torch.Tensor) -> np.ndarray:
+        """The host copy of ``value``, read as ``sift2d.sync.<what>``."""
+        return timing.host_read(f"{self.layer}.sync.{what}", value)
 
     def clear(self) -> None:
         self.ref_matched_kp = None

@@ -58,8 +58,7 @@ def _below(bound: int) -> float:
     The upper clip for in-range samples: the range guards exclude
     x >= bound, so every unmasked sample is < bound and the clip must not
     perturb its fractional part."""
-    t = torch.tensor(float(bound), dtype=torch.float32)
-    return float(torch.nextafter(t, torch.zeros_like(t)))
+    return float(np.nextafter(np.float32(bound), np.float32(0)))
 
 
 def bicubic_prepare(img: torch.Tensor) -> torch.Tensor:

@@ -620,8 +620,10 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
                     layer: str = "icgn"):
     """Self-adaptive-subset IC-GN (oc_icgn.cpp:152-158): per-POI subset
     radii ``srx``/``sry`` [N] on the static ``r_max`` grid
-    (:func:`adaptive_subsets`), every sample through the global LUT;
-    ``layer`` names the spans and host reads, as in :func:`icgn2d`.
+    (:func:`adaptive_subsets`), every sample through the global LUT (the
+    span ``<layer>.lut_eval``); ``layer`` names the spans and host reads,
+    as in :func:`icgn2d`, and ``stats`` counts the iterations as
+    ``iter_adaptive``.
     Returns (p_out, u0, v0, zncc, iteration, convergence, computed)."""
     h, w = ref_img.shape
     count = stats if stats is not None else collections.Counter()
@@ -638,7 +640,8 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
     def body(state):
         wmat, active, it, dpn, znssd, oob_fail = state
         gx_c, gy_c = warped(order, wmat, xs, ys, a["xl"], a["yl"])
-        tval = bspline.bicubic_eval(tar_lut, gx_c, gy_c)[0]
+        with timing.span(f"{layer}.lut_eval"):
+            tval = bspline.bicubic_eval(tar_lut, gx_c, gy_c)[0]
         fail_now = torch.any((tval < 0.0) & pmask, dim=1) & active
         tar_zm = zero_mean(tval, pmf, cnt)
         tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
@@ -661,7 +664,7 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
     zf = torch.zeros_like(xs)
     state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
     while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
-        count["iter_full"] += 1
+        count["iter_adaptive"] += 1
         with timing.span(f"{layer}.iter"):
             state = body(state)
     wmat, _, it, dpn, znssd, oob_fail = state

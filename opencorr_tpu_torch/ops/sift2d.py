@@ -9,9 +9,13 @@ and this module ports that re-implementation:
 
 * Gaussian pyramid: separable blurs per octave (static sigmas).
 * DoG extrema: 26-neighbour comparisons; candidates extracted in scan order
-  by a cumsum compaction into a fixed cap ``k_raw`` per octave.
+  by a cumsum compaction into ``k_raw`` per octave.
 * Sub-pixel refinement: the 5-step quadratic fit, batched over candidates
   with masked state; survivors compacted into ``k_kp``.
+* The octave's size sets ``k_raw`` and ``k_kp`` (:func:`octave_caps`, the
+  JAX package's fixed caps); where a count passes one, its buffer grows to
+  hold every extremum, keypoint and orientation instance, as OpenCV's
+  SIFT with ``nfeatures`` 0 keeps them all.
 * Orientation peaks (at most 3 per keypoint) and the descriptor over fixed
   windows per keypoint, the descriptor's trilinear scatter written as dense
   tent-weight products, in chunks of ``DESC_CHUNK`` instances.
@@ -32,8 +36,12 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.precision import f32, fma
 from .linalg import solve_small
+
+# the family of this module's spans and host reads (``utils/timing``)
+LAYER = "sift2d"
 
 # OpenCV SIFT constants
 IMG_BORDER = 5
@@ -331,7 +339,8 @@ def ori_and_peaks(padded, layer, r, c, scl_octv, valid, *, radius_max):
     dev = r.device
     radius = torch.round(ORI_RADIUS * scl_octv)[:, None, None]
     # pixels past every keypoint's radius add exact zeros: cut them
-    rmax = min(radius_max, int(radius.max()) if kk else 0)
+    rmax = min(radius_max, timing.host_read(
+        f"{LAYER}.sync.ori_radius", radius.max(), int) if kk else 0)
     dx, dy = window_grads(padded, layer, r, c, rmax)
     ii, jj = _grid(rmax, dev)
     sig = ORI_SIG_FCTR * scl_octv
@@ -398,7 +407,8 @@ def descriptor_chunk(padded, layer, r_f, c_f, scl_octv, angle, valid, *,
     radius = torch.clamp(radius, max=f32(math.sqrt(h * h + w * w)))
     radius = radius[:, None, None]
     # pixels past every instance's radius add exact zeros: cut them
-    rmax = min(radius_max, int(radius.max()))
+    rmax = min(radius_max, timing.host_read(f"{LAYER}.sync.desc_radius",
+                                            radius.max(), int))
     dx, dy = window_grads(padded, layer, r_i, c_i, rmax)
 
     ii, jj = _grid(rmax, dev)
@@ -448,14 +458,18 @@ def descriptor_chunk(padded, layer, r_f, c_f, scl_octv, angle, valid, *,
 def detect_octave(gauss, dog, *, n_layers, contrast_thr, edge_thr, sigma,
                   k_raw, k_kp, radius_ori, radius_desc):
     """One octave's detection.  Returns per-instance tensors of length
-    ``k_kp``: (ok, x, y, layer+xi, scl_octv, response, angle, desc) and the
-    counts (candidates against ``k_raw``, refined keypoints and
-    orientation instances against ``k_kp``)."""
+    ``k_kp`` or more: (ok, x, y, layer+xi, scl_octv, response, angle,
+    desc) and the counts (candidates beside ``k_raw``, refined keypoints
+    and orientation instances beside ``k_kp``).  A count past its cap
+    grows the buffer to it, in whole ``DESC_CHUNK``s for keypoints and
+    instances."""
     h, w = dog.shape[1], dog.shape[2]
     thr = math.floor(0.5 * contrast_thr / n_layers * 255)
+    fit = lambda cap, n: max(cap, -(-n // DESC_CHUNK) * DESC_CHUNK)
 
     mask = extremum_mask(dog, thr, n_layers)
-    idx, cand_ok = compact(mask.reshape(-1), k_raw)
+    n_cand = timing.host_read(f"{LAYER}.sync.candidates", mask.sum(), int)
+    idx, cand_ok = compact(mask.reshape(-1), max(k_raw, n_cand))
     layer0 = (idx // (h * w)).to(_I) + 1
     rc = idx % (h * w)
     r0 = (rc // w).to(_I)
@@ -463,7 +477,9 @@ def detect_octave(gauss, dog, *, n_layers, contrast_thr, edge_thr, sigma,
     ref = refine_candidates(dog, layer0, r0, c0, cand_ok, n_layers=n_layers,
                             contrast_thr=contrast_thr, edge_thr=edge_thr)
 
-    kp_idx, kp_ok = compact(ref["valid"], k_kp)
+    n_kp = timing.host_read(f"{LAYER}.sync.keypoints", ref["valid"].sum(),
+                            int)
+    kp_idx, kp_ok = compact(ref["valid"], fit(k_kp, n_kp))
     g = lambda a: a[kp_idx]
     layer, r, c = g(ref["layer"]), g(ref["r"]), g(ref["c"])
     xc, xr, xi = g(ref["xc"]), g(ref["xr"]), g(ref["xi"])
@@ -474,9 +490,11 @@ def detect_octave(gauss, dog, *, n_layers, contrast_thr, edge_thr, sigma,
     angle, peak_ok = ori_and_peaks(padded, layer, r, c, scl_octv, kp_ok,
                                    radius_max=radius_ori)
 
-    # the [K, P] orientation instances, compacted to k_kp for descriptors
+    # the [K, P] orientation instances, compacted for descriptors
     inst_ok = peak_ok.reshape(-1)
-    inst_idx, sel_ok = compact(inst_ok, k_kp)
+    n_inst = timing.host_read(f"{LAYER}.sync.instances", inst_ok.sum(), int)
+    k_inst = fit(k_kp, n_inst)
+    inst_idx, sel_ok = compact(inst_ok, k_inst)
     src = inst_idx // MAX_ORI_PEAKS
     s_layer, s_scl, s_resp = layer[src], scl_octv[src], resp[src]
     s_rf = (r.to(_F) + xr)[src]
@@ -484,18 +502,16 @@ def detect_octave(gauss, dog, *, n_layers, contrast_thr, edge_thr, sigma,
     s_li = (layer.to(_F) + xi)[src]
     s_angle = angle.reshape(-1)[inst_idx]
 
-    n_inst = int(sel_ok.sum())
     dwidth = DESCR_WIDTH * DESCR_WIDTH * DESCR_HIST_BINS
-    desc = torch.zeros((k_kp, dwidth), dtype=_F, device=dog.device)
+    desc = torch.zeros((k_inst, dwidth), dtype=_F, device=dog.device)
     # instances are front-compacted: the padding past them keeps zeros
     for lo in range(0, n_inst, DESC_CHUNK):
         sl = slice(lo, min(lo + DESC_CHUNK, n_inst))
         desc[sl] = descriptor_chunk(
             padded, s_layer[sl], s_rf[sl], s_cf[sl], s_scl[sl], s_angle[sl],
             sel_ok[sl], radius_max=radius_desc)
-    counts = dict(candidates=int(mask.sum()), k_raw=k_raw,
-                  keypoints=int(ref["valid"].sum()), instances=n_inst,
-                  k_kp=k_kp)
+    counts = dict(candidates=n_cand, k_raw=k_raw, keypoints=n_kp,
+                  instances=n_inst, k_kp=k_kp)
     return (sel_ok, s_cf, s_rf, s_li, s_scl, s_resp, s_angle, desc), counts
 
 
@@ -510,7 +526,8 @@ def radius_caps(sigma: float, n_layers: int) -> Tuple[int, int]:
 
 def octave_caps(hh: int, ww: int, n_layers: int) -> Tuple[int, int]:
     """(k_raw, k_kp) of an octave of hh x ww: the candidate and keypoint
-    caps, k_kp a multiple of DESC_CHUNK."""
+    caps, k_kp a multiple of DESC_CHUNK; ``detect_octave`` grows a buffer
+    past its cap where the octave's count needs it."""
     k_raw = int(np.clip(3 * hh * ww // 8, 4096, 262144))
     k_kp = int(np.clip(hh * ww // 32, 2048, 24576))
     k_kp = -(-k_kp // DESC_CHUNK) * DESC_CHUNK
@@ -551,11 +568,11 @@ def gather_keypoints(results):
     coordinates, desc [N, 128], sizes, angles, responses) as numpy."""
     pts, descs, sizes, angles, resps = [], [], [], [], []
     for (ok, x, y, li, scl, resp, angle, desc, o) in results:
-        ok = ok.cpu().numpy()
+        ok = timing.host_read(f"{LAYER}.sync.ok", ok)
         if not ok.any():
             continue
         f = 2.0 ** (o - 1)  # octave o of the doubled pyramid
-        host = lambda a: a.cpu().numpy()[ok]
+        host = lambda a: timing.host_read(f"{LAYER}.sync.keypoint", a)[ok]
         pts.append(np.stack([host(x) * f, host(y) * f], -1))
         descs.append(host(desc))
         sizes.append(host(scl) * f * 2.0)
@@ -571,7 +588,8 @@ def gather_keypoints(results):
 
 def compact_octaves(results, k_total: int):
     """The valid keypoints of all octaves in input-image coordinates,
-    compacted on the device to ``k_total``: (x, y, desc, ok)."""
+    compacted on the device to ``k_total`` (at least their count, or the
+    last are dropped): (x, y, desc, ok)."""
     scale = [2.0 ** (r[8] - 1) for r in results]
     x_all = torch.cat([r[1] * s for r, s in zip(results, scale)])
     y_all = torch.cat([r[2] * s for r, s in zip(results, scale)])
