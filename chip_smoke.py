@@ -32,7 +32,11 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    ICGN3D1's step kernels at those two chunks (``phase_icgn3d_step``):
    the prologue ``==`` its plain version on all nine outputs, the residual
    with and without z guards within the card test's tolerance of its plain
-   version (fail flags equal) and equal from run to run; the
+   version (fail flags equal) and equal from run to run; FFTCC3D's
+   re-rank kernel ``==`` its plain version at one DVC chunk (512 x 60^3,
+   8 candidates clustered about the peak and scattered), timed against
+   the two windows' bytes, with the memory it allocates and its ptxas
+   lines (``phase_rerank3d``); the
    SIFT3D descriptor histogram at the octave-0 crops 23, 29 and 36, with
    random rotations, at 64 keypoints (some near the volume's faces in
    clamped windows; the kernel splits each box into z-bands) and at the
@@ -218,9 +222,11 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -249,6 +255,9 @@ DVC_R = 30
 DVC_UVW = (0.4, -0.3, 0.6)
 DVC_STRAIN = 0.005
 DVC_CZ = (DVC_SHAPE[0] - 1) / 2.0
+# FFTCC3D's re-rank at one chunk of the DVC path: 512 POIs (FFTCC3D's
+# chunk) of (2r)^3 windows
+RERANK_CHUNK = (512, 2 * DVC_R, 2 * DVC_R, 2 * DVC_R)
 # The feature-seeded DVC path (test_dvc_sift_icgn1): the Torus CT pair's
 # dimensions [z, y, x] (bench_dvc_torus.py:39,71), r=16, the translation
 # imposed on the target (examples/dvc.py:43), and a POI grid close to
@@ -737,6 +746,7 @@ def phase_kernels(torch, ot, img, rng, reps):
         pro, res = phase_icgn3d_step(torch, gen, reps, n, (s - 1) // 2)
         records["prologue3d"].append(pro)
         records["residual3d"].append(res)
+    records["rerank3d"] = phase_rerank3d(torch, reps)
     return records
 
 
@@ -832,6 +842,147 @@ def phase_lattice3d(torch, gen, reps, n, s, kind, d=1):
         bytes=nbytes, flops=flops, out_of_range=int(oor.sum()))
     log(json.dumps({"kernel": "lattice_eval_3d", **rec}))
     return rec
+
+
+def rerank3d_case(n, shape, kind, seed):
+    """Inputs of FFTCC3D's exact re-rank, made with numpy from ``seed``:
+    float32 windows ``ref_w`` and ``tar_w`` [n, *shape] and a stand-in
+    correlation ``flat`` [n, V] whose top 8 are the candidates (values in
+    [0, 1), the candidates planted above them).  The target is the
+    reference circularly shifted by a shift s in [-2, 2]^3 per POI (T[x +
+    s] = R[x]).  ``kind``:
+    "random": 8-bit reference, 0-2 grey levels of integral noise on the
+    target; candidates s and 7 of its 26 neighbours (a peak's top 8
+    cluster so, and shifts near 0 wrap);
+    "scattered": as "random", with 8 random candidates;
+    "tie": the reference periodic along x (period wx / 2; wx even), no
+    noise: s and s + wx / 2 along x tie at the top exactly, beside 6
+    random candidates;
+    "negative": integral values in [-255, 255], so negative products;
+    "cap": integral values in [-a, a] with a = max|R| = max|T| the
+    largest that FFTCC3D's range guard passes (v (a^2 / 256 + 1) < 0.99 x
+    2^31);
+    "half": as "random", with 0.5 added to every 7th voxel of POI 0's
+    windows: not integral (fftcc3d drops its result), and rounded half
+    to even by both versions."""
+    rng = np.random.default_rng(seed)
+    wz, wy, wx = shape
+    v = wz * wy * wx
+    full = (n, *shape)
+    if kind == "negative":
+        ref = rng.integers(-255, 256, full, dtype=np.int32)
+    elif kind == "cap":
+        a = math.isqrt(int(256 * (0.99 * 2 ** 31 / v - 1)))
+        while v * (a * a / 256 + 1) >= 0.99 * 2 ** 31:
+            a -= 1
+        ref = rng.integers(-a, a + 1, full, dtype=np.int32)
+        ref[:, 0, 0, 0] = a
+    elif kind == "tie":
+        half = rng.integers(0, 256, (n, wz, wy, wx // 2), dtype=np.int32)
+        ref = np.concatenate([half, half], axis=3)
+    else:
+        ref = rng.integers(0, 256, full, dtype=np.int32)
+    shifts = rng.integers(-2, 3, (n, 3))
+    tar = np.stack([np.roll(ref[i], tuple(shifts[i]), axis=(0, 1, 2))
+                    for i in range(n)])
+    if kind in ("random", "scattered", "negative", "half"):
+        tar += rng.integers(0, 3, full, dtype=np.int32)
+    ref, tar = ref.astype(np.float32), tar.astype(np.float32)
+    if kind == "half":
+        ref[0].reshape(-1)[::7] += 0.5
+        tar[0].reshape(-1)[3::7] += 0.5
+
+    def flat_index(d):
+        d = np.mod(d, shape)
+        return int((d[0] * wy + d[1]) * wx + d[2])
+
+    near = [d for d in itertools.product((-1, 0, 1), repeat=3) if any(d)]
+    flat = rng.random((n, v), dtype=np.float32)
+    for i, s in enumerate(shifts):
+        if kind == "tie":
+            first = [s, s + (0, 0, wx // 2)]
+        elif kind == "scattered":
+            first = []
+        else:
+            first = [s] + [s + near[k] for k in rng.permutation(26)]
+        cands = list(dict.fromkeys(flat_index(d) for d in first))
+        while len(cands) < 8:
+            c = int(rng.integers(v))
+            if c not in cands:
+                cands.append(c)
+        flat[i, cands[:8]] = 2 + rng.permutation(8)
+    return ref, tar, flat
+
+
+def ptxas_usage(name, lib):
+    """The ptxas lines (registers, shared memory, spills) of the entry
+    functions of library ``lib`` whose names hold ``name``, from this
+    process's build log, by function."""
+    from opencorr_tpu_torch.ops import _kernels
+
+    out, cur = {}, None
+    for ln in _kernels.BUILD_LOGS.get(lib, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+        elif cur and ("registers" in ln or "spill" in ln):
+            out.setdefault(cur, []).append(ln.split(": ", 1)[-1].strip())
+    return out
+
+
+def phase_rerank3d(torch, reps):
+    """FFTCC3D's re-rank kernel against its plain version at one chunk of
+    the DVC path (``RERANK_CHUNK``, 8 candidates), on clustered and on
+    scattered candidates (``rerank3d_case``), ``==``; timed beside its
+    bound (the two float32 windows read once, the candidates and the
+    winners) and the plain version, with the memory it allocates past its
+    inputs and, from this process's build, its registers and shared
+    memory."""
+    from opencorr_tpu_torch.ops import fftcc, rerank3d
+
+    n, *shape = RERANK_CHUNK
+    v = int(np.prod(shape))
+    recs = []
+    for kind, seed in (("random", 31), ("scattered", 32)):
+        ref_w, tar_w, flat = (torch.from_numpy(a).cuda()
+                              for a in rerank3d_case(n, shape, kind, seed))
+        cand = torch.topk(flat, rerank3d.NCAND, dim=1).indices
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = rerank3d.rerank_3d(ref_w, tar_w, cand)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        plain = lambda: fftcc._rerank3d(
+            torch.round(ref_w).reshape(n, v).to(torch.int32),
+            torch.round(tar_w).reshape(n, v).to(torch.int32), flat, *shape)
+        plain()  # its allocations made, so that the second call is timed
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = plain()
+        end.record()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"rerank_3d {n}x{shape} ({kind}): "
+              "winners differ from the plain version's")
+        nbytes = 2 * n * v * 4 + n * rerank3d.NCAND * 8 + n * 8
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(torch, lambda: rerank3d.rerank_3d(ref_w, tar_w, cand),
+                     reps)
+        rec = dict(
+            shape=[n, *shape], candidates=kind, bit_equal=True,
+            max_abs_err=0.0, ms=ms,
+            plain_ms=start.elapsed_time(end), library_ms=None,
+            library_note="no single PyTorch call scores circular shifts "
+                         "of a window",
+            bound_ms=tb, bound_by="bytes", share=tb / ms, bytes=nbytes,
+            allocated_bytes=extra,
+            smem_bytes=rerank3d.smem_bytes(*shape),
+            ptxas=ptxas_usage("fftcc3d_rerank", "lattice3d"))
+        log(json.dumps({"kernel": "rerank_3d", **rec}))
+        recs.append(rec)
+        del ref_w, tar_w, flat, cand, got, want
+        torch.cuda.empty_cache()
+    return recs
 
 
 def step_chunk(torch, gen, n, r, margin=8):
@@ -1386,13 +1537,15 @@ def run_dvc(torch, ot, ref, tar, pois, device, r=DVC_R, out_dir=None):
 
 
 def phase_dvc(torch, ot, ref, tar, checked, tmpdir):
+    from opencorr_tpu_torch.ops import rerank3d
+
     pois = ot.poi_grid_3d(*DVC_GRID)
     n = pois.n
     check(n == int(np.prod(DVC_GRID[1:4])), "DVC grid size")
     run_dvc(torch, ot, ref, tar, pois.map(lambda a: a[:512]), "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = dvc_wrappers()
+    wrappers = (*dvc_wrappers(), rerank3d.rerank_3d)
     start_counts(wrappers)
     seeded, refined, out, ms, stats, fstats = run_dvc(
         torch, ot, ref, tar, pois, "cuda", out_dir=tmpdir)
@@ -3593,7 +3746,9 @@ def main() -> int:
         "residual_3d": {"x".join(map(str, (*r["shape"], guarded)))
                         for r in records["residual3d"]
                         for guarded in (False, True)},
-        "descriptor_hist": {r["launch"] for r in records["desc"]}}
+        "descriptor_hist": {r["launch"] for r in records["desc"]},
+        "rerank_3d": {"x".join(map(str, r["shape"]))
+                      for r in records["rerank3d"]}}
     checked_gathers = {"x".join(map(str, g)) for g in checked[0]}
     # kernels 1 and 2: phase 2's device ms a launch, by launch shape as the
     # wrappers record it, for the paths' sums
@@ -3763,6 +3918,10 @@ def main() -> int:
                 "opencorr_tpu_torch/csrc/lattice3d.cu",
                 "none: fuses ICGN3D1's residual after kernel 3",
                 records["residual3d"], list(lattice_shape)),
+        summary("rerank_3d", "cuda",
+                "opencorr_tpu_torch/csrc/fftcc3d_rerank.cuh",
+                "none: scores FFTCC3D's candidate peaks from the windows",
+                records["rerank3d"], list(RERANK_CHUNK), candidates="random"),
         summary("descriptor_hist", "cuda",
                 "opencorr_tpu_torch/csrc/desc3d.cu",
                 "opencorr_tpu/ops/pallas_desc.py:87", records["desc"],

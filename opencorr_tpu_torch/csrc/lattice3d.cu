@@ -42,11 +42,15 @@
 // and sum is rounded separately (no FMA contraction), in the order of the
 // plain PyTorch version, so the two agree to the last bit on the same
 // inputs.
+//
+// The library also holds FFTCC3D's exact re-rank (fftcc3d_rerank.cuh), so
+// that the DVC path builds one library.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bulk_copy.cuh"
+#include "fftcc3d_rerank.cuh"
 
 namespace {
 

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import timing
+from . import rerank3d
 from .gather2d import gather_windows_2d
 from .window3d import gather_windows_3d
 
@@ -163,7 +164,7 @@ def fftcc2d(ref_img: torch.Tensor, tar_img: torch.Tensor, xs: torch.Tensor,
             zncc, valid)
 
 
-_NCAND_3D = 8  # f32 peak candidates re-scored exactly in 3D
+_NCAND_3D = rerank3d.NCAND  # f32 peak candidates re-scored exactly in 3D
 
 
 def fftcc3d(ref_vol: torch.Tensor, tar_vol: torch.Tensor, xs: torch.Tensor,
@@ -184,7 +185,10 @@ def fftcc3d(ref_vol: torch.Tensor, tar_vol: torch.Tensor, xs: torch.Tensor,
     lexicographically, and exact ties take the first flat index in scan
     order (the reference's strict-> first-max loop).  ``torch.sum`` of
     int32 returns int64; under the range guards both sums fit int32
-    anyway, so the numbers are the JAX package's.  ``stats``, when given,
+    anyway, so the numbers are the JAX package's.  On CUDA one kernel
+    scores the candidates straight from the float32 windows
+    (:func:`rerank3d.rerank_3d`, the same winners); on the CPU
+    :func:`_rerank3d` does.  ``stats``, when given,
     counts the computes that ran the re-rank; ``layer`` as in
     :func:`fftcc2d`."""
     count = stats if stats is not None else collections.Counter()
@@ -240,9 +244,13 @@ def fftcc3d(ref_vol: torch.Tensor, tar_vol: torch.Tensor, xs: torch.Tensor,
     if timing.host_read(f"{layer}.sync.integral", is_int.any(), bool):
         count["rerank"] += 1
         with timing.span(f"{layer}.rerank"):
-            idx = torch.where(is_int, _rerank3d(ri.reshape(n, v).to(i32),
-                                                ti.reshape(n, v).to(i32),
-                                                flat, wz, wy, wx), idx)
+            if ref_w.is_cuda:
+                cand = torch.topk(flat, _NCAND_3D, dim=1).indices
+                best = rerank3d.rerank_3d(ref_w, tar_w, cand)
+            else:
+                best = _rerank3d(ri.reshape(n, v).to(i32),
+                                 ti.reshape(n, v).to(i32), flat, wz, wy, wx)
+            idx = torch.where(is_int, best, idx)
 
     peak = torch.gather(flat, 1, idx[:, None])[:, 0]
     du = idx % wx

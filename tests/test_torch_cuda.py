@@ -22,7 +22,11 @@ one: cuda against cpu on small pairs.  ICGN3D1's step kernels: the
 prologue ``==`` its plain version at one DVC chunk and at odd shapes, the
 residual within a stated tolerance of its plain version and equal run to
 run, and ``icgn3d1`` through both (with and without z guards) within
-1e-5 voxel of the cpu."""
+1e-5 voxel of the cpu.  FFTCC3D's re-rank kernel: winners ``==`` the
+plain ``fftcc._rerank3d`` at one DVC chunk, a short chunk, odd shapes and
+planes too large for shared memory, on ties, negative products, values
+just inside the range guard and half-integral voxels; ``fftcc3d`` on cuda
+``==`` on cpu where some windows are not integral."""
 
 import collections
 import dataclasses
@@ -31,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from opencorr_tpu_torch.ops import desc3d, gather2d, lattice2d, lattice3d
+from opencorr_tpu_torch.ops import (desc3d, fftcc, gather2d, lattice2d,
+                                    lattice3d, rerank3d)
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and torch's CPU thread pools stall when they oversubscribe the cores.
@@ -309,6 +314,94 @@ def test_lattice3d_wrapper_refuses_bad_tensors(cuda):
     bad[5] = bad[5].transpose(1, 3)
     with pytest.raises(ValueError):
         lattice3d.lattice_eval_3d(*bad, d_wobble=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,shape,kind,staged", [
+    (512, (60, 60, 60), "random", True),  # one DVC chunk
+    (512, (60, 60, 60), "scattered", True),
+    (101, (60, 60, 60), "tie", True),  # the DVC queue's last chunk
+    (101, (60, 60, 60), "negative", True),
+    (101, (60, 60, 60), "cap", True),
+    (101, (60, 60, 60), "half", True),
+    (6, (12, 10, 14), "random", True),
+    (6, (12, 10, 14), "scattered", True),
+    (6, (12, 10, 14), "tie", True),
+    (6, (12, 10, 14), "negative", True),
+    (6, (12, 10, 14), "cap", True),
+    (6, (12, 10, 14), "half", True),
+    (5, (7, 9, 11), "random", True),  # slabs of 4 and 3 planes
+    (3, (2, 180, 172), "tie", True),  # runs of one staged plane
+    (3, (2, 250, 240), "random", False),  # planes past shared memory
+    (3, (2, 250, 240), "tie", False),
+])
+def test_rerank3d_kernel_equals_plain(cuda, n, shape, kind, staged):
+    import chip_smoke as cs
+
+    ref_w, tar_w, flat = (torch.from_numpy(a).to(cuda) for a in
+                          cs.rerank3d_case(n, shape, kind, seed=n + shape[0]))
+    v = flat.shape[1]
+    cand = torch.topk(flat, rerank3d.NCAND, dim=1).indices
+    assert (rerank3d.smem_bytes(*shape) > 0) == staged
+    before = rerank3d.rerank_3d.launches
+    got = rerank3d.rerank_3d(ref_w, tar_w, cand)
+    assert rerank3d.rerank_3d.launches == before + 1
+    want = fftcc._rerank3d(torch.round(ref_w).reshape(n, v).to(torch.int32),
+                           torch.round(tar_w).reshape(n, v).to(torch.int32),
+                           flat, *shape)
+    assert torch.equal(got, want)
+    assert torch.equal(rerank3d.rerank_3d(ref_w, tar_w, cand), got)
+
+
+@pytest.mark.cuda
+def test_rerank3d_wrapper_refuses_bad_tensors(cuda):
+    import chip_smoke as cs
+
+    ref_w, tar_w, flat = (torch.from_numpy(a).to(cuda) for a in
+                          cs.rerank3d_case(4, (6, 8, 10), "random", seed=0))
+    cand = torch.topk(flat, rerank3d.NCAND, dim=1).indices
+    for bad in ((ref_w.double(), tar_w, cand),
+                (ref_w, tar_w, cand.to(torch.int32)),
+                (ref_w.cpu(), tar_w.cpu(), cand.cpu()),
+                (ref_w, tar_w.cpu(), cand),
+                (ref_w.transpose(1, 3), tar_w, cand),
+                (ref_w, tar_w[:3], cand),
+                (ref_w, tar_w, cand[:, :4].contiguous())):
+        with pytest.raises(ValueError):
+            rerank3d.rerank_3d(*bad)
+
+
+@pytest.mark.cuda
+def test_fftcc3d_rerank_cuda_matches_cpu(cuda):
+    """fftcc3d on cuda (the re-rank kernel) and on cpu (``_rerank3d``) on
+    an integral pair with a block of half-integral target voxels: the POIs
+    whose windows meet it are not integral and keep their float32 argmax;
+    displacements and validity equal, zncc within 1e-5."""
+    rng = np.random.default_rng(5)
+    dims, r = (40, 40, 40), 6
+    ref = rng.integers(0, 256, dims).astype(np.float32)
+    tar = (np.roll(ref, (1, -2, 1), axis=(0, 1, 2))
+           + rng.integers(0, 3, dims)).astype(np.float32)
+    tar[24:28, 24:28, 24:28] += 0.5
+    g = np.arange(r, 40 - r, 3, dtype=np.float32)
+    zs, ys, xs = (a.ravel() for a in np.meshgrid(g, g, g, indexing="ij"))
+    c = np.stack([zs, ys, xs])
+    near = ((c - r < 28) & (c + r > 24)).all(axis=0)
+    assert near.any() and not near.all()
+    zero = np.zeros_like(xs)
+    outs, stats = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        stats[dev.type] = collections.Counter()
+        args = [torch.from_numpy(a).to(dev)
+                for a in (ref, tar, xs, ys, zs, zero, zero, zero)]
+        outs[dev.type] = [a.cpu() for a in fftcc.fftcc3d(
+            *args, rx=r, ry=r, rz=r, stats=stats[dev.type])]
+    assert stats["cuda"] == stats["cpu"] == {"rerank": 1}
+    for a, b in zip(outs["cuda"][:3] + outs["cuda"][4:],
+                    outs["cpu"][:3] + outs["cpu"][4:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(outs["cuda"][3], outs["cpu"][3], rtol=0,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda

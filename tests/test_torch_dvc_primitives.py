@@ -389,6 +389,45 @@ def test_fftcc3d_module_matches_jax(speckle_pair_3d):
         assert ft.stats.get("rerank", 0) == (3 if a is not ref else 0)
 
 
+@pytest.mark.parametrize("kind", ["random", "scattered", "tie", "negative",
+                                  "cap", "half"])
+def test_rerank3d_plain_matches_int64_brute_force(kind):
+    """fftcc._rerank3d, the oracle of the CUDA re-rank: the 8 candidates'
+    circular scores in int64 numpy and the first-max rule (largest score,
+    smallest flat index on a tie) on chip_smoke's re-rank cases, where
+    ties, negative products and values just inside the range guard
+    occur."""
+    import chip_smoke as cs
+
+    n, shape = 6, (6, 8, 10)
+    v = int(np.prod(shape))
+    ref_w, tar_w, flat = cs.rerank3d_case(n, shape, kind, seed=3)
+    ri, ti = (np.round(a).astype(np.int64) for a in (ref_w, tar_w))
+    cand = torch.topk(_t(flat), 8, dim=1).indices.numpy()
+    want, ties = [], 0
+    for i in range(n):
+        scores = []
+        for c in cand[i]:
+            cz, cy, cx = np.unravel_index(c, shape)
+            scores.append(int(np.sum(ri[i] * np.roll(
+                ti[i], (-cz, -cy, -cx), axis=(0, 1, 2)))))
+        best = max(scores)
+        top = [int(c) for c, s in zip(cand[i], scores) if s == best]
+        ties += len(top) > 1
+        want.append(min(top))
+    got = tfftcc._rerank3d(_t(ri.reshape(n, v).astype(np.int32)),
+                           _t(ti.reshape(n, v).astype(np.int32)), _t(flat),
+                           *shape)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ties == (n if kind == "tie" else 0)
+    if kind == "cap":
+        cap = np.abs(ri).max(axis=(1, 2, 3)) * np.abs(ti).max(axis=(1, 2, 3))
+        assert (v * (cap / 256.0 + 1.0) < 0.99 * 2.0 ** 31).all()
+        assert (cap > 0.99 * 256 * (0.99 * 2.0 ** 31 / v - 1)).all()
+    if kind == "negative":
+        assert (ri < 0).any() and (ti < 0).any()
+
+
 # --- strain ------------------------------------------------------------------
 
 def _linear_field(x, y, z, rng):
