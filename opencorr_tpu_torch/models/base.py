@@ -64,6 +64,16 @@ def budget_chunk(chunk_size: Optional[int], rx: int, ry: int,
     return min(chunk_size, max(1024, budget // s))
 
 
+def eval_margin(margin: Optional[int], radii, sides) -> Optional[int]:
+    """The windowed eval's margin, or None (the global path) where the
+    image, volume or halo-extended block (``sides``, x first, as ``radii``)
+    is too small for the window: min(side - 2r) - 1 < 2 * margin."""
+    if margin is not None and min(
+            s - 2 * r for s, r in zip(sides, radii)) - 1 < 2 * margin:
+        return None
+    return margin
+
+
 def sort_by_zncc(table):
     """Descending ZNCC order, stable (``sortByZNCC``, oc_dic.cpp:57): (the
     reordered table, the permutation as a numpy int64 array)."""

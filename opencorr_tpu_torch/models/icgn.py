@@ -26,16 +26,23 @@ def _workset_budget(device: torch.device) -> int:
     return _CPU_WORKSET_BUDGET
 
 
-def merge_2d(t: poi_mod.POITable2D, outs, radii=None) -> poi_mod.POITable2D:
-    """A 2D refiner's outputs (p_out, u0, v0, zncc, iteration,
-    convergence, computed) written into ``t``: the code everywhere, the
-    rest where computed; ``radii`` (rx, ry), when given, into ``sr`` where
-    computed (a self-adaptive refine keeps the table's radii)."""
-    p_out, u0, v0, zncc, it, dpn, computed = outs
+def merge_refined(t, outs, radii=None):
+    """A refiner's outputs (p_out, u0, v0[, w0], zncc, iteration,
+    convergence, computed) written into the 2D or 3D table ``t``: the code
+    everywhere, the rest where computed; ``radii`` (rx, ry[, rz]), when
+    given, into ``sr`` where computed (a self-adaptive refine keeps the
+    table's radii)."""
+    p_out, *seeds, zncc, it, dpn, computed = outs
+    if len(seeds) == 3:
+        zeta, cols = poi_mod.R3_ZNCC, (poi_mod.R3_U0, poi_mod.R3_V0,
+                                       poi_mod.R3_W0, poi_mod.R3_ITER,
+                                       poi_mod.R3_CONV)
+    else:
+        zeta, cols = poi_mod.R_ZNCC, (poi_mod.R_U0, poi_mod.R_V0,
+                                      poi_mod.R_ITER, poi_mod.R_CONV)
     r = t.r.clone()
-    r[:, poi_mod.R_ZNCC] = zncc
-    for col, val in ((poi_mod.R_U0, u0), (poi_mod.R_V0, v0),
-                     (poi_mod.R_ITER, it), (poi_mod.R_CONV, dpn)):
+    r[:, zeta] = zncc
+    for col, val in zip(cols, (*seeds, it, dpn)):
         r[:, col] = torch.where(computed, val, t.r[:, col])
     if radii is None:
         return t.replace(p=p_out, r=r)
@@ -51,8 +58,8 @@ class Refiner2D(base.Module2D):
     ``chunk_size`` within ``base.budget_chunk``'s working set, and the
     windowed eval's margin (``window_margin``, default 8; ``None``, an
     ``eval_mode`` other than "lattice" or an image smaller than the window
-    takes the global LUT, as in the JAX package).  ``stats`` counts the
-    eval branches and iterations of every compute."""
+    (``base.eval_margin``) takes the global LUT, as in the JAX package).
+    ``stats`` counts the eval branches and iterations of every compute."""
 
     layer = "icgn"
     order = 1
@@ -110,13 +117,11 @@ class Refiner2D(base.Module2D):
         """The windowed eval's margin, or None (the global path) for an
         ``eval_mode`` other than "lattice" or an image smaller than the
         window."""
-        margin = self.window_margin if self.eval_mode == "lattice" else None
-        if margin is not None:
-            h, w = self.ref_img.shape
-            if min(w - 2 * self.subset_radius_x,
-                   h - 2 * self.subset_radius_y) - 1 < 2 * margin:
-                return None
-        return margin
+        if self.eval_mode != "lattice":
+            return None
+        return base.eval_margin(
+            self.window_margin, (self.subset_radius_x, self.subset_radius_y),
+            self.ref_img.shape[::-1])
 
     def _fixed(self, run, table, *extras) -> poi_mod.POITable2D:
         """``run(t, *extras)`` over chunks of ``table`` at the fixed radii
@@ -132,8 +137,9 @@ class Refiner2D(base.Module2D):
         chunk shrinks with the (2 r_max + 1)^2 grid."""
         r_max = int(max(timing.host_read(f"{self.layer}.sync.radius",
                                          table.sr.max(), float), 1.0))
-        return base.chunked(lambda t: merge_2d(t, refine(t, r_max)), table,
-                            base.budget_chunk(self.chunk_size, r_max, r_max))
+        return base.chunked(lambda t: merge_refined(t, refine(t, r_max)),
+                            table, base.budget_chunk(self.chunk_size, r_max,
+                                                     r_max))
 
 
 class ICGN2D1(Refiner2D):
@@ -165,7 +171,7 @@ class ICGN2D1(Refiner2D):
         margin = self._margin()
 
         def run(t, *offs):
-            return merge_2d(t, icgn_ops.icgn2d(
+            return merge_refined(t, icgn_ops.icgn2d(
                 self._gx, self._gy, self.ref_img, self._lut, t.x, t.y, t.p,
                 t.r[:, poi_mod.R_ZNCC], conv, stop, self.tar_img,
                 order=self.order, rx=rx, ry=ry,
@@ -267,14 +273,10 @@ class ICGN3D1(base.Module3D):
         self._check_table(table)
         rx, ry, rz = (self.subset_radius_x, self.subset_radius_y,
                       self.subset_radius_z)
-        margin = self.window_margin
-        if margin is not None:
-            dz, dy, dx = self.ref_vol.shape
-            if min(dx - 2 * rx, dy - 2 * ry, dz - 2 * rz) - 1 < 2 * margin:
-                margin = None  # volume smaller than the window: global path
+        margin = base.eval_margin(self.window_margin, (rx, ry, rz),
+                                  self.ref_vol.shape[::-1])
         chunk = self.chunk_size or self.auto_chunk(table.n)
         self.stats["chunks"] += max(1, -(-table.n // chunk))
-        radii = (float(rx), float(ry), float(rz))
 
         def run(t):
             with timing.span(self.layer + ".chunk"):
@@ -284,17 +286,7 @@ class ICGN3D1(base.Module3D):
                     self.conv_criterion, self.stop_condition, rx=rx, ry=ry,
                     rz=rz, window_margin=margin, eval_mode=self.eval_mode,
                     stats=self.stats, layer=self.layer)
-            p_out, u0, v0, w0, zncc, it, dpn, computed = out
-            r = t.r.clone()
-            r[:, poi_mod.R3_ZNCC] = zncc
-            for col, val in ((poi_mod.R3_U0, u0), (poi_mod.R3_V0, v0),
-                             (poi_mod.R3_W0, w0), (poi_mod.R3_ITER, it),
-                             (poi_mod.R3_CONV, dpn)):
-                r[:, col] = torch.where(computed, val, t.r[:, col])
-            sr = t.sr.clone()
-            for col, rad in enumerate(radii):
-                sr[:, col] = torch.where(computed, rad, t.sr[:, col])
-            return t.replace(p=p_out, r=r, sr=sr)
+            return merge_refined(t, out, (rx, ry, rz))
 
         return base.chunked(run, table, chunk)
 

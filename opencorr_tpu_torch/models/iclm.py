@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from ..data import poi as poi_mod
 from ..ops import iclm as iclm_ops
-from .icgn import Refiner2D, merge_2d
+from .icgn import Refiner2D, merge_refined
 
 
 class ICLM2D1(Refiner2D):
@@ -45,7 +45,7 @@ class ICLM2D1(Refiner2D):
         margin = self._margin()
 
         def run(t):
-            return merge_2d(t, iclm_ops.iclm2d(
+            return merge_refined(t, iclm_ops.iclm2d(
                 self._gx, self._gy, self.ref_img, self._lut, t.x, t.y, t.p,
                 t.r[:, poi_mod.R_ZNCC], conv, stop, damping, self.tar_img,
                 order=self.order, rx=rx, ry=ry, window_margin=margin,

@@ -5,7 +5,7 @@ from __future__ import annotations
 from ..data import poi as poi_mod
 from ..ops import bspline, gradient, nr as nr_ops
 from ..utils import timing
-from .icgn import Refiner2D, merge_2d
+from .icgn import Refiner2D, merge_refined
 
 
 class NR2D1(Refiner2D):
@@ -42,7 +42,7 @@ class NR2D1(Refiner2D):
         margin = self._margin()
 
         def run(t):
-            return merge_2d(t, nr_ops.nr2d1(
+            return merge_refined(t, nr_ops.nr2d1(
                 self.ref_img, self._lut, self._lut_gx, self._lut_gy, t.x,
                 t.y, t.p, t.r[:, poi_mod.R_ZNCC], self.conv_criterion,
                 self.stop_condition, self.tar_img, self._tgx, self._tgy,

@@ -1,9 +1,10 @@
 """Batched inverse-compositional Gauss-Newton (IC-GN) refinement: 2D first
 and second order with the stereo center offsets (``icgn2d``), with
 self-adaptive subsets (``icgn2d_adaptive``), and 3D first order
-(``icgn3d1``, at the end).  The 2D pieces the other refiners share (the
-windowed eval, the entry guard, the steepest-descent images, the warp and
-the exit codes) live here too: ``ops/iclm.py`` and ``ops/nr.py`` use them.
+(``icgn3d1``, at the end).  The pieces the other refiners share (the
+windowed eval, the entry guard, the steepest-descent images, the warp, the
+host loop and the exit codes) live here too: ``ops/iclm.py`` and
+``ops/nr.py`` use them.
 
 Reference semantics: ``oc_icgn.cpp`` -- per POI: entry guard (bounds / NaN /
 prior failure -> ZNCC -3, oc_icgn.cpp:160-167); reference subset and its
@@ -17,17 +18,19 @@ convergence norm weighted by the subset radii (:296-306).  Exit codes -4
 (not converged, :329-332) and -5 (NaN, :335-340).
 
 The POI queue is the batch axis.  Every POI runs the same iteration under a
-per-POI ``active`` mask; finished POIs freeze their state, and the host loop
-ends when none is active, one device sync per iteration.  Every window is
-cut by the gather kernel (ops/gather2d.py) and every target sample is
-evaluated by the lattice kernel (ops/lattice2d.py) through the windowed
-eval below.  The self-adaptive refine, as the JAX package's, cuts plain
-subsets and samples the global LUT.
+per-POI ``active`` mask; finished POIs freeze their state (:func:`gn_update`),
+and the host loop (:func:`iterate`) ends when none is active, one device
+sync per iteration.  Every window is cut by the gather kernel
+(ops/gather2d.py) and every target sample is evaluated by the lattice
+kernel (ops/lattice2d.py) through the windowed eval below.  The
+self-adaptive refine, as the JAX package's, cuts plain subsets and samples
+the global LUT.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Optional
 
 import torch
@@ -87,6 +90,9 @@ def make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed, *, rx, ry,
     reads (``<layer>.eval``, ``.correct``, ``.exact``, ``.sync.wobble``,
     ``.sync.still``).
     """
+    if img is None:
+        raise ValueError(f"{layer}: the windowed eval needs the image it "
+                         "samples")
     dev = img.device
     h, w = img.shape
     sh, sw = 2 * ry + 1, 2 * rx + 1
@@ -236,7 +242,10 @@ def make_windowed_eval2d(img, lut, cx, cy, u_seed, v_seed, *, rx, ry, margin,
                          layer: str = "icgn"):
     """Closure form of :func:`make_windowed_eval2d_state` for the refiners
     that never compact their queue (ICLM, NR): ``eval_fn(gxc, gyc, active)
-    -> [N, S]``."""
+    -> [N, S]``; ``margin`` None samples the global per-pixel LUT
+    (:func:`global_eval2d`)."""
+    if margin is None:
+        return global_eval2d(lut)
     st, fn = make_windowed_eval2d_state(img, lut, cx, cy, u_seed, v_seed,
                                         rx=rx, ry=ry, margin=margin,
                                         stats=stats, layer=layer)
@@ -286,14 +295,16 @@ def dp_weights_per_poi(order: int, rxf: torch.Tensor,
     return torch.stack([one, rx2, ry2, rx4, rxy2, ry4] * 2, -1)
 
 
-def entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h: int, w: int
-                ) -> torch.Tensor:
-    """The entry guard (oc_icgn.cpp:160-167): the subset inside the image,
-    a finite seed smaller than the image, no earlier failure.  ``rx``/``ry``
-    are ints or per-POI radii."""
-    return ((ys - ry >= 0) & (xs - rx >= 0) & (ys + ry <= h - 1)
-            & (xs + rx <= w - 1) & (u_in.abs() < w) & (v_in.abs() < h)
-            & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in))
+def entry_guard(centers, radii, seeds, zncc_in, sides) -> torch.Tensor:
+    """The entry guard (oc_icgn.cpp:160-167, :1279): the subset inside
+    the image or volume, a finite seed smaller than it, no earlier
+    failure.  Per axis, x first: ``centers`` [N], ``radii`` (ints or
+    per-POI radii), ``seeds`` (u, v[, w]) and ``sides`` (w, h[, d])."""
+    ok = zncc_in >= 0
+    for c, r, u, side in zip(centers, radii, seeds, sides):
+        ok = (ok & (c - r >= 0) & (c + r <= side - 1) & (u.abs() < side)
+              & ~torch.isnan(u))
+    return ok
 
 
 def subset_corners(xs, ys, rx: int, ry: int, h: int, w: int):
@@ -389,37 +400,134 @@ def icgn_guard(zncc_in: torch.Tensor) -> torch.Tensor:
                        zncc_in)
 
 
-def finish(order: int, p_new, p_in, zncc_in, valid, oob_fail, it, dpn,
-           znssd, conv: float, max_iter: float, zncc_guard):
-    """Codes and merged rows of a finished refinement.
+def finish(p_new, p_in, zncc_in, valid, oob_fail, it, dpn, znssd,
+           conv: float, max_iter: float, zncc_guard, *, disp=(0, 6),
+           cols=None):
+    """Codes and merged rows of a finished refinement, 2D or 3D.
 
-    ``p_new`` [N, 6] (u ux uy v vx vy) or [N, 12].  ZNCC from ZNSSD, -4
-    where the last step still exceeded ``conv`` at ``max_iter``
-    (oc_icgn.cpp:329-332), -5 on NaN with u, v restored to the guess
-    (:335-340), -3 where a sample fell out of range, ``zncc_guard`` where
-    the entry guard failed.  Returns (p_out [N, 12], zncc_out, computed)."""
-    u_in, v_in = p_in[:, 0], p_in[:, 6]
+    ``p_new`` holds the columns ``cols`` of ``p_in``'s rows: [N, 6] u ux uy
+    v vx vy of a 2D row (``FIRST``), or all of them (None: 2D second order
+    [N, 12], 3D [N, 12]); it is the caller's own tensor, restored in place.
+    ZNCC from ZNSSD, -4 where the last step still exceeded ``conv`` at
+    ``max_iter`` (oc_icgn.cpp:329-332), -5 on NaN with the displacements
+    restored to the guess (:335-340; ``disp``, columns of ``p_in``: u, v
+    in 2D, u, v, w in 3D), -3 where a sample fell out of range,
+    ``zncc_guard`` where the entry guard failed.  Returns (p_out [N, 12],
+    zncc_out, computed)."""
     computed = valid & ~oob_fail
     zncc = 0.5 * (2.0 - znssd)
     zncc = torch.where((dpn >= conv) & (it >= max_iter),
                        torch.full_like(zncc, -4.0), zncc)
-    cu, cv = (0, 3) if order == 1 else (0, 6)
-    isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, cu])
-             | torch.isnan(p_new[:, cv]))
+    at = [c if cols is None else cols.index(c) for c in disp]
+    isnan = torch.isnan(zncc)
+    for c in at:
+        isnan = isnan | torch.isnan(p_new[:, c])
     zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
-    p_new = p_new.clone()
-    p_new[:, cu] = torch.where(isnan, u_in, p_new[:, cu])
-    p_new[:, cv] = torch.where(isnan, v_in, p_new[:, cv])
-    if order == 1:
-        p_out = p_in.clone()
-        for src, dst in enumerate(FIRST):
-            p_out[:, dst] = torch.where(computed, p_new[:, src], p_in[:, dst])
-    else:
+    for c, orig in zip(at, disp):
+        p_new[:, c] = torch.where(isnan, p_in[:, orig], p_new[:, c])
+    if cols is None:
         p_out = torch.where(computed[:, None], p_new, p_in)
+    else:
+        p_out = p_in.clone()
+        for src, dst in enumerate(cols):
+            p_out[:, dst] = torch.where(computed, p_new[:, src], p_in[:, dst])
     zncc_out = torch.where(
         valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
         zncc_guard)
     return p_out, zncc_out, computed
+
+
+def iterate(body, state, count: collections.Counter, key: str, layer: str,
+            above: Optional[int] = None):
+    """The refiners' host loop: ``state = body(state)`` while the active
+    mask ``state[1]`` holds any POI or, with ``above``, more than ``above``
+    POIs.  Each check is one host read ``<layer>.sync.active`` (a bool, or
+    the int count), each iteration adds 1 to ``count[key]`` and runs in the
+    span ``<layer>.iter``.  Returns the last state."""
+    site, span = f"{layer}.sync.active", f"{layer}.iter"
+    while (timing.host_read(site, state[1].any(), bool) if above is None
+           else timing.host_read(site, state[1].sum(), int) > above):
+        count[key] += 1
+        with timing.span(span):
+            state = body(state)
+    return state
+
+
+def gn_state(wmat0: torch.Tensor, valid: torch.Tensor, xs: torch.Tensor):
+    """The Gauss-Newton loop's state at the start: (warp, active,
+    iteration, convergence norm, ZNSSD, out-of-range failure), every POI
+    that passed the entry guard active, the counters zero in ``xs``'s
+    dtype."""
+    zf = torch.zeros_like(xs)
+    return wmat0, valid, zf, zf, zf, torch.zeros_like(valid)
+
+
+def gn_update(state, fail, wmat_new, znssd_new, dpn_new, conv: float,
+              max_iter: float):
+    """The masked Gauss-Newton update of 2D and 3D IC-GN: an active POI
+    with an out-of-range sample (``fail``) stops with its failure marked;
+    the other active POIs take the new warp, ZNSSD and norm and count the
+    iteration; a POI stays active while its norm is at least ``conv`` and
+    its count below ``max_iter`` (oc_icgn.cpp:296-307).  Finished POIs
+    keep their state."""
+    wmat, active, it, dpn, znssd, oob_fail = state
+    fail_now = fail & active
+    step = active & ~fail_now
+    wmat = torch.where(step[:, None, None], wmat_new, wmat)
+    znssd = torch.where(step, znssd_new, znssd)
+    dpn = torch.where(step, dpn_new, dpn)
+    it = torch.where(step, it + 1.0, it)
+    oob_fail = oob_fail | fail_now
+    active = step & (dpn >= conv) & (it < max_iter)
+    return wmat, active, it, dpn, znssd, oob_fail
+
+
+def gn_body2d(order: int, ev_fn, warp_from_p, dp_w: torch.Tensor,
+              conv: float, max_iter: float, pmask=None, pmf=None, cnt=None):
+    """One 2D IC-GN iteration (oc_icgn.cpp:225-307) as ``body(cc, state) ->
+    state``.  ``cc``: the per-POI constants, which the compacted tail
+    gathers (target centers ``tcx``/``tcy``, local grid ``xl``/``yl``,
+    ``sd`` images, ``ref_zm``, ``rn``, ``hinv`` and the eval's state
+    ``ev``); ``ev_fn(cc["ev"], gxc, gyc, active) -> [N, S]`` samples the
+    target, -1 out of range; ``dp_w``: the convergence weights, [1, K] or
+    per POI [N, K].  ``pmask``/``pmf``/``cnt``: a self-adaptive subset's
+    pixel mask (bool, float) and pixel counts, which confine the range
+    check and the means to its own pixels; None is the fixed subset."""
+
+    def body(cc, state):
+        wmat, active = state[:2]
+        rn = cc["rn"]
+        gx_c, gy_c = warped(order, wmat, cc["tcx"], cc["tcy"], cc["xl"],
+                            cc["yl"])
+        tval = ev_fn(cc["ev"], gx_c, gy_c, active)
+
+        # Out-of-range detection, -1 sentinel (oc_icgn.cpp:244-255).
+        neg = tval < 0.0
+        fail = torch.any(neg if pmask is None else neg & pmask, dim=1)
+
+        tar_zm = zero_mean(tval, pmf, cnt)
+        tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
+        err = tar_zm * (rn / tn)[:, None] - cc["ref_zm"]
+        znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
+        num = torch.sum(cc["sd"] * err[:, None, :], dim=2)  # [N, K]
+        dp = torch.bmm(cc["hinv"], num[:, :, None])[:, :, 0]
+        wmat_new = torch.bmm(wmat, linalg_ops.inv_small(warp_from_p(dp)))
+        dpn_new = torch.sqrt(torch.sum(dp * dp * dp_w, dim=1))
+        return gn_update(state, fail, wmat_new, znssd_new, dpn_new, conv,
+                         max_iter)
+
+    return body
+
+
+def lut_eval2d(lut: torch.Tensor, span: str):
+    """``ev_fn`` of :func:`gn_body2d` through the global per-pixel LUT, -1
+    out of range, in the span ``span``."""
+
+    def ev_fn(st, gxc, gyc, active):
+        with timing.span(span):
+            return bspline.bicubic_eval(lut, gxc, gyc)[0]
+
+    return ev_fn
 
 
 def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
@@ -428,7 +536,7 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
            max_iter: float, tar_img: Optional[torch.Tensor] = None, *,
            order: int = 1, rx: int, ry: int,
            center_offset: Optional[torch.Tensor] = None,
-           window_margin: Optional[int] = None, eval_mode: str = "lattice",
+           window_margin: Optional[int] = None,
            stats: Optional[collections.Counter] = None,
            layer: str = "icgn"):
     """First- or second-order IC-GN over a POI queue.
@@ -437,10 +545,9 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     ``center_offset`` [N, 2] (the stereo overload, oc_icgn.cpp:353-560)
     moves each target subset's center to (x + ox, y + oy) and offsets the
     local coordinates of the steepest-descent images by (-ox, -oy); None
-    is the plain path.  ``window_margin`` None, or an ``eval_mode`` other
-    than "lattice" (as in the JAX package), evaluates every sample through
-    the global per-pixel LUT; an int M uses per-POI target windows of
-    half-extent r+M around the seeded target center and the lattice
+    is the plain path.  ``window_margin`` None evaluates every sample
+    through the global per-pixel LUT; an int M uses per-POI target windows
+    of half-extent r+M around the seeded target center and the lattice
     kernel, where a sample leaving its window reads as out of range (-3).
     ``stats``, when given, counts the eval branches and loop phases
     taken; ``layer``, the calling module's family, names the spans and host
@@ -460,7 +567,8 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     u_in = p_in[:, 0]
     v_in = p_in[:, 6]
     with timing.span(f"{layer}.setup"):
-        valid = entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h, w)
+        valid = entry_guard((xs, ys), (rx, ry), (u_in, v_in), zncc_in,
+                            (w, h))
         x0, y0 = subset_corners(xs, ys, rx, ry, h, w)
 
         # Reference subset, zero-mean norm.
@@ -491,67 +599,29 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
         hinv = linalg_ops.inv_small(hessian(sd))
         wmat0, warp_from_p, p_from_warp = warp_start(order, p_in)
 
-        if window_margin is not None and eval_mode == "lattice":
-            if tar_img is None:
-                raise ValueError("icgn2d: the windowed eval needs tar_img")
+        if window_margin is None:
+            ev_state, ev_fn = {}, lut_eval2d(tar_lut, f"{layer}.eval")
+        else:
             ev_state, ev_fn = make_windowed_eval2d_state(
                 tar_img, tar_lut, tcx, tcy, u_in, v_in, rx=rx, ry=ry,
                 margin=window_margin, stats=count, layer=layer)
-        else:
-            ev_state = {}
 
-            def ev_fn(st, gxc, gyc, active):
-                with timing.span(f"{layer}.eval"):
-                    return bspline.bicubic_eval(tar_lut, gxc, gyc)[0]
-
-        dp_w = _dp_weights(order, rx, ry).to(device=dev, dtype=fdt)
+        dp_w = _dp_weights(order, rx, ry).to(device=dev, dtype=fdt)[None, :]
 
         # Per-POI loop constants: the two-phase compaction gathers a shrunken
         # copy of everything the GN body reads.
         cc = dict(tcx=tcx, tcy=tcy, xl=xl, yl=yl, sd=sd, ref_zm=ref_zm, rn=rn,
                   hinv=hinv, ev=ev_state)
 
-    def body(cc, state):
-        wmat, active, it, dpn, znssd, oob_fail = state
-        rn, hinv = cc["rn"], cc["hinv"]
-        gx_c, gy_c = warped(order, wmat, cc["tcx"], cc["tcy"], cc["xl"],
-                            cc["yl"])
-        tval = ev_fn(cc["ev"], gx_c, gy_c, active)
-
-        # Out-of-range detection, -1 sentinel (oc_icgn.cpp:244-255).
-        fail_now = torch.any(tval < 0.0, dim=1) & active
-
-        tar_zm = zero_mean(tval)
-        tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
-        err = tar_zm * (rn / tn)[:, None] - cc["ref_zm"]
-        znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
-        num = torch.sum(cc["sd"] * err[:, None, :], dim=2)  # [N, K]
-        dp = torch.bmm(hinv, num[:, :, None])[:, :, 0]
-        winc = warp_from_p(dp)
-        wmat_new = torch.bmm(wmat, linalg_ops.inv_small(winc))
-        dpn_new = torch.sqrt(torch.sum(dp * dp * dp_w[None, :], dim=1))
-
-        step = active & ~fail_now
-        wmat = torch.where(step[:, None, None], wmat_new, wmat)
-        znssd = torch.where(step, znssd_new, znssd)
-        dpn = torch.where(step, dpn_new, dpn)
-        it = torch.where(step, it + 1.0, it)
-        oob_fail = oob_fail | fail_now
-        active = step & (dpn >= conv) & (it < max_iter)
-        return wmat, active, it, dpn, znssd, oob_fail
-
-    zf = torch.zeros_like(xs)
-    state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
+    body = gn_body2d(order, ev_fn, warp_from_p, dp_w, conv, max_iter)
+    state = gn_state(wmat0, valid, xs)
     if n >= _COMPACT_MIN:
         # Phase 1 at full width until <= n/4 POIs remain active; phase 2
         # runs the same body on a gather-compacted quarter-width state
         # (each POI's math is independent and unchanged).
         m = -(-n // 4)
-        while timing.host_read(f"{layer}.sync.active", state[1].sum(),
-                               int) > m:
-            count["iter_full"] += 1
-            with timing.span(f"{layer}.iter"):
-                state = body(cc, state)
+        state = iterate(functools.partial(body, cc), state, count,
+                        "iter_full", layer, above=m)
         with timing.span(f"{layer}.compact"):
             wmat, active1, it, dpn, znssd, oob_fail = state
             gi, si, okc = compact_idx(active1, m)
@@ -560,10 +630,8 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
                     for k, v in cc.items()}
             sub = (wmat[gi], active1[gi] & okc, it[gi], dpn[gi], znssd[gi],
                    oob_fail[gi])
-        while timing.host_read(f"{layer}.sync.active", sub[1].any(), bool):
-            count["iter_compact"] += 1
-            with timing.span(f"{layer}.iter"):
-                sub = body(cc_s, sub)
+        sub = iterate(functools.partial(body, cc_s), sub, count,
+                      "iter_compact", layer)
         with timing.span(f"{layer}.compact"):
             wmat = _put(wmat, si, sub[0])
             it = _put(it, si, sub[2])
@@ -571,16 +639,14 @@ def icgn2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
             znssd = _put(znssd, si, sub[4])
             oob_fail = _put(oob_fail, si, sub[5])
     else:
-        while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
-            count["iter_full"] += 1
-            with timing.span(f"{layer}.iter"):
-                state = body(cc, state)
-        wmat, _, it, dpn, znssd, oob_fail = state
+        wmat, _, it, dpn, znssd, oob_fail = iterate(
+            functools.partial(body, cc), state, count, "iter_full", layer)
 
     with timing.span(f"{layer}.finish"):
         p_out, zncc_out, computed = finish(
-            order, p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it,
-            dpn, znssd, conv, max_iter, icgn_guard(zncc_in))
+            p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it, dpn,
+            znssd, conv, max_iter, icgn_guard(zncc_in),
+            cols=FIRST if order == 1 else None)
     return p_out, u_in, v_in, zncc_out, it, dpn, computed
 
 
@@ -621,8 +687,9 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
     """Self-adaptive-subset IC-GN (oc_icgn.cpp:152-158): per-POI subset
     radii ``srx``/``sry`` [N] on the static ``r_max`` grid
     (:func:`adaptive_subsets`), every sample through the global LUT (the
-    span ``<layer>.lut_eval``); ``layer`` names the spans and host reads,
-    as in :func:`icgn2d`, and ``stats`` counts the iterations as
+    span ``<layer>.lut_eval``), :func:`icgn2d`'s iteration on the masked
+    subsets; ``layer`` names the spans and host reads, as in
+    :func:`icgn2d`, and ``stats`` counts the iterations as
     ``iter_adaptive``.
     Returns (p_out, u0, v0, zncc, iteration, convergence, computed)."""
     h, w = ref_img.shape
@@ -630,47 +697,23 @@ def icgn2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
     u_in, v_in = p_in[:, 0], p_in[:, 6]
     a = adaptive_subsets(gx, gy, ref_img, xs, ys, srx, sry, order=order,
                          r_max=r_max)
-    valid = entry_guard(xs, ys, a["rxf"], a["ryf"], u_in, v_in, zncc_in, h,
-                        w)
-    pmask, pmf, cnt, rn = a["pmask"], a["pmf"], a["count"], a["rn"]
+    valid = entry_guard((xs, ys), (a["rxf"], a["ryf"]), (u_in, v_in),
+                        zncc_in, (w, h))
     hinv = linalg_ops.inv_small(hessian(a["sd"]))
     wmat0, warp_from_p, p_from_warp = warp_start(order, p_in)
-    dp_w = dp_weights_per_poi(order, a["rxf"], a["ryf"])
-
-    def body(state):
-        wmat, active, it, dpn, znssd, oob_fail = state
-        gx_c, gy_c = warped(order, wmat, xs, ys, a["xl"], a["yl"])
-        with timing.span(f"{layer}.lut_eval"):
-            tval = bspline.bicubic_eval(tar_lut, gx_c, gy_c)[0]
-        fail_now = torch.any((tval < 0.0) & pmask, dim=1) & active
-        tar_zm = zero_mean(tval, pmf, cnt)
-        tn = torch.sqrt(torch.sum(tar_zm * tar_zm, dim=1))
-        err = tar_zm * (rn / tn)[:, None] - a["ref_zm"]
-        znssd_new = torch.sum(err * err, dim=1) / (rn * rn)
-        num = torch.sum(a["sd"] * err[:, None, :], dim=2)
-        dp = torch.bmm(hinv, num[:, :, None])[:, :, 0]
-        wmat_new = torch.bmm(wmat, linalg_ops.inv_small(warp_from_p(dp)))
-        dpn_new = torch.sqrt(torch.sum(dp * dp * dp_w, dim=1))
-
-        step = active & ~fail_now
-        wmat = torch.where(step[:, None, None], wmat_new, wmat)
-        znssd = torch.where(step, znssd_new, znssd)
-        dpn = torch.where(step, dpn_new, dpn)
-        it = torch.where(step, it + 1.0, it)
-        oob_fail = oob_fail | fail_now
-        active = step & (dpn >= conv) & (it < max_iter)
-        return wmat, active, it, dpn, znssd, oob_fail
-
-    zf = torch.zeros_like(xs)
-    state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
-    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
-        count["iter_adaptive"] += 1
-        with timing.span(f"{layer}.iter"):
-            state = body(state)
-    wmat, _, it, dpn, znssd, oob_fail = state
+    body = gn_body2d(order, lut_eval2d(tar_lut, f"{layer}.lut_eval"),
+                     warp_from_p, dp_weights_per_poi(order, a["rxf"],
+                                                     a["ryf"]),
+                     conv, max_iter, a["pmask"], a["pmf"], a["count"])
+    cc = dict(tcx=xs, tcy=ys, xl=a["xl"], yl=a["yl"], sd=a["sd"],
+              ref_zm=a["ref_zm"], rn=a["rn"], hinv=hinv, ev={})
+    wmat, _, it, dpn, znssd, oob_fail = iterate(
+        functools.partial(body, cc), gn_state(wmat0, valid, xs), count,
+        "iter_adaptive", layer)
     p_out, zncc_out, computed = finish(
-        order, p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it, dpn,
-        znssd, conv, max_iter, icgn_guard(zncc_in))
+        p_from_warp(wmat), p_in, zncc_in, valid, oob_fail, it, dpn, znssd,
+        conv, max_iter, icgn_guard(zncc_in),
+        cols=FIRST if order == 1 else None)
     return p_out, u_in, v_in, zncc_out, it, dpn, computed
 
 
@@ -782,20 +825,14 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     z_guarded = z_guard_lo is not None or z_guard_hi is not None
     z_lo = -float("inf") if z_guard_lo is None else float(z_guard_lo)
     z_hi = float("inf") if z_guard_hi is None else float(z_guard_hi)
-    dz_, dy_, dx_ = ref_vol.shape
     dev = ref_vol.device
     fdt = ref_vol.dtype
     count = stats if stats is not None else collections.Counter()
 
     with timing.span(f"{layer}.setup"):
         u_in, v_in, w_in = p_in[:, 0], p_in[:, 4], p_in[:, 8]
-        # Entry guard: subset inside the volume, sane seed, no earlier failure.
-        valid = ((xs - rx >= 0) & (ys - ry >= 0) & (zs - rz >= 0)
-                 & (xs + rx <= dx_ - 1) & (ys + ry <= dy_ - 1)
-                 & (zs + rz <= dz_ - 1)
-                 & (u_in.abs() < dx_) & (v_in.abs() < dy_) & (w_in.abs() < dz_)
-                 & (zncc_in >= 0) & ~torch.isnan(u_in) & ~torch.isnan(v_in)
-                 & ~torch.isnan(w_in))
+        valid = entry_guard((xs, ys, zs), (rx, ry, rz), (u_in, v_in, w_in),
+                            zncc_in, ref_vol.shape[::-1])
 
         # Reference subsets, their zero-mean norms and the inverse Hessians
         # of the steepest-descent images (oc_icgn.cpp:1314-1325).
@@ -827,7 +864,7 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
     z_guard = (z_lo, z_hi) if z_guarded else None
 
     def body(state):
-        wmat, active, it, dpn, znssd, oob_fail = state
+        wmat, active = state[:2]
         with timing.span(f"{layer}.eval"):
             tval, fail0 = eval_tar(wmat, active)
         # A negative sample, the -1 sentinel included, fails the POI, as
@@ -835,49 +872,20 @@ def icgn3d1(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
         fail_any, znssd_new, num = icgn3d_step.residual_3d(
             tval, fail0, ref, wmat, zs, rx=rx, ry=ry, rz=rz, z_guard=z_guard)
         del tval
-        fail_now = fail_any & active
         dp = torch.bmm(ref.hinv, num[:, :, None])[:, :, 0]
         winc = warp_ops.warp3d1_from_p(dp)
         wmat_new = torch.bmm(wmat, linalg_ops.inv_small(winc))
         # displacement-only convergence norm (oc_icgn.cpp:1445)
         dpn_new = torch.sqrt(dp[:, 0] * dp[:, 0] + dp[:, 4] * dp[:, 4]
                              + dp[:, 8] * dp[:, 8])
+        return gn_update(state, fail_any, wmat_new, znssd_new, dpn_new, conv,
+                         max_iter)
 
-        step = active & ~fail_now
-        wmat = torch.where(step[:, None, None], wmat_new, wmat)
-        znssd = torch.where(step, znssd_new, znssd)
-        dpn = torch.where(step, dpn_new, dpn)
-        it = torch.where(step, it + 1.0, it)
-        oob_fail = oob_fail | fail_now
-        active = step & (dpn >= conv) & (it < max_iter)
-        return wmat, active, it, dpn, znssd, oob_fail
-
-    zf = torch.zeros_like(xs)
-    state = (wmat0, valid, zf, zf, zf, torch.zeros_like(valid))
-    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
-        count["iter"] += 1
-        with timing.span(f"{layer}.iter"):
-            state = body(state)
-    wmat, _, it, dpn, znssd, oob_fail = state
+    wmat, _, it, dpn, znssd, oob_fail = iterate(
+        body, gn_state(wmat0, valid, xs), count, "iter", layer)
 
     with timing.span(f"{layer}.finish"):
-        computed = valid & ~oob_fail
-        p_new = warp_ops.p_from_warp3d1(wmat)
-        zncc = 0.5 * (2.0 - znssd)
-        # Not-converged code.
-        zncc = torch.where((dpn >= conv) & (it >= max_iter),
-                           torch.full_like(zncc, -4.0), zncc)
-        # NaN code; u, v, w restored to the initial guess.
-        isnan = (torch.isnan(zncc) | torch.isnan(p_new[:, 0])
-                 | torch.isnan(p_new[:, 4]) | torch.isnan(p_new[:, 8]))
-        zncc = torch.where(isnan, torch.full_like(zncc, -5.0), zncc)
-        for col, orig in ((0, u_in), (4, v_in), (8, w_in)):
-            p_new[:, col] = torch.where(isnan, orig, p_new[:, col])
-
-        p_out = torch.where(computed[:, None], p_new, p_in)
-        zncc_guard = torch.where(zncc_in >= 0, torch.full_like(zncc_in, -3.0),
-                                 zncc_in)
-        zncc_out = torch.where(
-            valid, torch.where(oob_fail, torch.full_like(zncc, -3.0), zncc),
-            zncc_guard)
+        p_out, zncc_out, computed = finish(
+            warp_ops.p_from_warp3d1(wmat), p_in, zncc_in, valid, oob_fail, it,
+            dpn, znssd, conv, max_iter, icgn_guard(zncc_in), disp=(0, 4, 8))
     return p_out, u_in, v_in, w_in, zncc_out, it, dpn, computed

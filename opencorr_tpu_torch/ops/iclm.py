@@ -22,12 +22,11 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..utils import timing
 from . import linalg as linalg_ops
 from .gather2d import gather_windows_2d
-from .icgn import (_dp_weights, adaptive_subsets, dp_weights_per_poi,
+from .icgn import (FIRST, _dp_weights, adaptive_subsets, dp_weights_per_poi,
                    entry_guard, finish, global_eval2d, hessian, icgn_guard,
-                   local_grid, make_windowed_eval2d, sd_images,
+                   iterate, local_grid, make_windowed_eval2d, sd_images,
                    subset_corners, warp_start, warped, zero_mean)
 
 
@@ -75,16 +74,13 @@ def _lm_loop(order, ev, hess, sd, ref_zm, rn, xs, ys, xl, yl, p_in, zncc_in,
         return wmat, active, it, dpn, znssd_out, lam, znssd0
 
     zf = torch.zeros_like(xs)
-    state = (wmat0, valid, zf, zf, zf, zf, zf + 4.0)
-    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
-        count["iter_full"] += 1
-        with timing.span(f"{layer}.iter"):
-            state = body(state)
-    wmat, _, it, dpn, znssd = state[:5]
+    wmat, _, it, dpn, znssd = iterate(
+        body, (wmat0, valid, zf, zf, zf, zf, zf + 4.0), count, "iter_full",
+        layer)[:5]
     p_out, zncc_out, computed = finish(
-        order, p_from_warp(wmat), p_in, zncc_in, valid,
-        torch.zeros_like(valid), it, dpn, znssd, conv, max_iter,
-        icgn_guard(zncc_in))
+        p_from_warp(wmat), p_in, zncc_in, valid, torch.zeros_like(valid), it,
+        dpn, znssd, conv, max_iter, icgn_guard(zncc_in),
+        cols=FIRST if order == 1 else None)
     return p_out, p_in[:, 0], p_in[:, 6], zncc_out, it, dpn, computed
 
 
@@ -94,14 +90,12 @@ def iclm2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
            max_iter: float, damping: Sequence[float],
            tar_img: Optional[torch.Tensor] = None, *, order: int, rx: int,
            ry: int, window_margin: Optional[int] = None,
-           eval_mode: str = "lattice",
            stats: Optional[collections.Counter] = None,
            layer: str = "iclm"):
     """First- or second-order IC-LM over a POI queue; ``damping`` is
-    (lambda, alpha, beta).  ``window_margin`` None, or an ``eval_mode``
-    other than "lattice", evaluates the target through the global
-    per-pixel LUT; an int M through per-POI windows of half-extent r+M
-    around the seeded center and the lattice kernel
+    (lambda, alpha, beta).  ``window_margin`` None evaluates the target
+    through the global per-pixel LUT; an int M through per-POI windows of
+    half-extent r+M around the seeded center and the lattice kernel
     (``ops/icgn.make_windowed_eval2d``).  ``stats`` counts the eval
     branches and iterations; ``layer``, the calling module's family, names
     the spans and host reads.  Returns (p_out [N,12], u0, v0, zncc,
@@ -114,7 +108,7 @@ def iclm2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     s = sh * sw
     count = stats if stats is not None else collections.Counter()
     u_in, v_in = p_in[:, 0], p_in[:, 6]
-    valid = entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h, w)
+    valid = entry_guard((xs, ys), (rx, ry), (u_in, v_in), zncc_in, (w, h))
     x0, y0 = subset_corners(xs, ys, rx, ry, h, w)
     cut = lambda img: gather_windows_2d(img, y0, x0, sh=sh,
                                         sw=sw).reshape(n, s)
@@ -122,14 +116,9 @@ def iclm2d(gx: torch.Tensor, gy: torch.Tensor, ref_img: torch.Tensor,
     rn = torch.sqrt(torch.sum(ref_zm * ref_zm, dim=1))
     xl, yl = local_grid(rx, ry, ref_img.dtype, ref_img.device)
     sd = sd_images(cut(gx), cut(gy), xl, yl, order)
-    if window_margin is not None and eval_mode == "lattice":
-        if tar_img is None:
-            raise ValueError("iclm2d: the windowed eval needs tar_img")
-        ev = make_windowed_eval2d(tar_img, tar_lut, xs, ys, u_in, v_in,
-                                  rx=rx, ry=ry, margin=window_margin,
-                                  stats=count, layer=layer)
-    else:
-        ev = global_eval2d(tar_lut)
+    ev = make_windowed_eval2d(tar_img, tar_lut, xs, ys, u_in, v_in, rx=rx,
+                              ry=ry, margin=window_margin, stats=count,
+                              layer=layer)
     dp_w = _dp_weights(order, rx, ry).to(ref_img.device)[None, :]
     return _lm_loop(order, ev, hessian(sd), sd, ref_zm, rn, xs, ys, xl, yl,
                     p_in, zncc_in, valid, dp_w, conv, max_iter, damping,
@@ -153,8 +142,8 @@ def iclm2d_adaptive(gx: torch.Tensor, gy: torch.Tensor,
     u_in, v_in = p_in[:, 0], p_in[:, 6]
     a = adaptive_subsets(gx, gy, ref_img, xs, ys, srx, sry, order=order,
                          r_max=r_max)
-    valid = entry_guard(xs, ys, a["rxf"], a["ryf"], u_in, v_in, zncc_in, h,
-                        w)
+    valid = entry_guard((xs, ys), (a["rxf"], a["ryf"]), (u_in, v_in),
+                        zncc_in, (w, h))
     dp_w = dp_weights_per_poi(order, a["rxf"], a["ryf"])
     return _lm_loop(order, global_eval2d(tar_lut), hessian(a["sd"]),
                     a["sd"], a["ref_zm"], a["rn"], xs, ys, a["xl"], a["yl"],

@@ -17,10 +17,9 @@ from typing import Optional
 
 import torch
 
-from ..utils import timing
 from . import linalg as linalg_ops
 from .gather2d import gather_windows_2d
-from .icgn import (_dp_weights, entry_guard, finish, global_eval2d, hessian,
+from .icgn import (FIRST, _dp_weights, entry_guard, finish, hessian, iterate,
                    local_grid, make_windowed_eval2d, sd_images,
                    subset_corners, zero_mean)
 
@@ -38,12 +37,11 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
           tar_img: Optional[torch.Tensor] = None,
           tar_gx_img: Optional[torch.Tensor] = None,
           tar_gy_img: Optional[torch.Tensor] = None, *, rx: int, ry: int,
-          window_margin: Optional[int] = None, eval_mode: str = "lattice",
+          window_margin: Optional[int] = None,
           stats: Optional[collections.Counter] = None, layer: str = "nr"):
-    """First-order NR over a POI queue.  ``window_margin`` None, or an
-    ``eval_mode`` other than "lattice", evaluates the target and its
-    gradients through their global LUTs; an int M through three windowed
-    evals (``ops/icgn.make_windowed_eval2d``), each
+    """First-order NR over a POI queue.  ``window_margin`` None evaluates
+    the target and its gradients through their global LUTs; an int M
+    through three windowed evals (``ops/icgn.make_windowed_eval2d``), each
     on its own image and LUT.  ``layer``, the calling module's family,
     names the spans and host reads.  Returns (p_out [N,12], u0, v0, zncc,
     iteration, convergence, computed)."""
@@ -52,7 +50,7 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
     sh, sw = 2 * ry + 1, 2 * rx + 1
     count = stats if stats is not None else collections.Counter()
     u_in, v_in = p_in[:, 0], p_in[:, 6]
-    valid = entry_guard(xs, ys, rx, ry, u_in, v_in, zncc_in, h, w)
+    valid = entry_guard((xs, ys), (rx, ry), (u_in, v_in), zncc_in, (w, h))
     x0, y0 = subset_corners(xs, ys, rx, ry, h, w)
     ref_zm = zero_mean(gather_windows_2d(ref_img, y0, x0, sh=sh,
                                          sw=sw).reshape(n, sh * sw))
@@ -60,18 +58,11 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
     xl, yl = local_grid(rx, ry, ref_img.dtype, ref_img.device)
     dp_w = _dp_weights(1, rx, ry).to(ref_img.device)[None, :]
 
-    pairs = ((tar_img, tar_lut), (tar_gx_img, tar_lut_gx),
-             (tar_gy_img, tar_lut_gy))
-    if window_margin is not None and eval_mode == "lattice":
-        if any(img is None for img, _ in pairs):
-            raise ValueError("nr2d1: the windowed eval needs the target "
-                             "image and both gradient images")
-        evals = [make_windowed_eval2d(img, lut, xs, ys, u_in, v_in, rx=rx,
-                                      ry=ry, margin=window_margin,
-                                      stats=count, layer=layer)
-                 for img, lut in pairs]
-    else:
-        evals = [global_eval2d(lut) for _, lut in pairs]
+    evals = [make_windowed_eval2d(img, lut, xs, ys, u_in, v_in, rx=rx, ry=ry,
+                                  margin=window_margin, stats=count,
+                                  layer=layer)
+             for img, lut in ((tar_img, tar_lut), (tar_gx_img, tar_lut_gx),
+                              (tar_gy_img, tar_lut_gy))]
 
     def body(state):
         p6, active, it, dpn, znssd_out = state
@@ -100,13 +91,10 @@ def nr2d1(ref_img: torch.Tensor, tar_lut: torch.Tensor,
         return p6, active, it, dpn, znssd_out
 
     zf = torch.zeros_like(xs)
-    state = (p_in[:, [0, 1, 2, 6, 7, 8]], valid, zf, zf, zf)
-    while timing.host_read(f"{layer}.sync.active", state[1].any(), bool):
-        count["iter_full"] += 1
-        with timing.span(f"{layer}.iter"):
-            state = body(state)
-    p6, _, it, dpn, znssd = state
+    p6, _, it, dpn, znssd = iterate(
+        body, (p_in[:, list(FIRST)], valid, zf, zf, zf), count, "iter_full",
+        layer)
     p_out, zncc_out, computed = finish(
-        1, p6, p_in, zncc_in, valid, torch.zeros_like(valid), it, dpn,
-        znssd, conv, max_iter, nr_guard(zncc_in))
+        p6, p_in, zncc_in, valid, torch.zeros_like(valid), it, dpn, znssd,
+        conv, max_iter, nr_guard(zncc_in), cols=FIRST)
     return p_out, u_in, v_in, zncc_out, it, dpn, computed

@@ -202,6 +202,14 @@ class ShardedICGN3D1:
         self.ref_vol = host(ref_vol)
         self.tar_vol = host(tar_vol)
 
+    def _margin(self, n_dev: int) -> Optional[int]:
+        """ICGN3D1's window rule (``base.eval_margin``) on a rank's
+        halo-extended block of a mesh of ``n_dev``."""
+        dim_z, dim_y, dim_x = self.ref_vol.shape
+        return base.eval_margin(
+            self.window_margin, (self.rx, self.ry, self.rz),
+            (dim_x, dim_y, dim_z // n_dev + 2 * self.halo))
+
     def compute(self, table: poi_mod.POITable3D, mesh: DeviceMesh,
                 axis: str = "z") -> poi_mod.POITable3D:
         group = mesh.get_group(axis)
@@ -210,19 +218,13 @@ class ShardedICGN3D1:
         dev = mesh_device(mesh)
         if table.device != dev:
             raise ValueError(f"POI table on {table.device}, mesh on {dev}")
-        dim_z, dim_y, dim_x = self.ref_vol.shape
+        dim_z = self.ref_vol.shape[0]
         if dim_z % n_dev:
             raise ValueError(
                 f"volume z={dim_z} not divisible by mesh size {n_dev}")
         if dim_z // n_dev < self.halo:
             raise ValueError("block smaller than halo; use fewer devices")
-        margin = self.window_margin
-        if margin is not None:
-            # ICGN3D1's small-volume rule, on the extended block
-            bz_ext = dim_z // n_dev + 2 * self.halo
-            if (min(dim_x - 2 * self.rx, dim_y - 2 * self.ry,
-                    bz_ext - 2 * self.rz) - 1 < 2 * margin):
-                margin = None
+        margin = self._margin(n_dev)
 
         def sync():
             if dev.type == "cuda":

@@ -24,9 +24,11 @@ from opencorr_tpu.ops import bspline as jbs
 from opencorr_tpu.ops import gradient as jgrad
 from opencorr_tpu.ops import icgn as jicgn
 from opencorr_tpu_torch.data import poi as tpoi
+from opencorr_tpu_torch.models import base
 from opencorr_tpu_torch.ops import bspline as tbs
 from opencorr_tpu_torch.ops import gradient as tgrad
 from opencorr_tpu_torch.ops import icgn as ticgn
+from opencorr_tpu_torch.parallel.halo import ShardedICGN3D1
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and torch's CPU thread pools stall when they oversubscribe the cores.
@@ -180,12 +182,14 @@ def test_icgn3d1_exact_fallback_every_iteration():
     assert stats["fallback"] == stats["iter"] > 0 and "lattice" not in stats
 
 
-def test_icgn3d1_window_exit_and_entry_guard():
+@pytest.mark.parametrize("eval_mode", ["lattice", "tile"])
+def test_icgn3d1_window_exit_and_entry_guard(eval_mode):
     """With a 2-voxel margin a sample leaves its window once the iterate
     moves 1 - frac voxels up from its seed: seeds 1.3 voxels below the
     truth fail -3 on the way to it.  Also a POI whose subset crosses the
     volume edge (-3 without iterating), one that failed earlier (keeps its
-    code) and one with a NaN seed (-3)."""
+    code) and one with a NaN seed (-3).  Both windowed evals end in the
+    shared exit codes (``ops/icgn.finish``)."""
     ref, tar, rng = _pair(0.0, seed=1)
 
     def seed(p0, zs):
@@ -196,13 +200,14 @@ def test_icgn3d1_window_exit_and_entry_guard():
     p0[7, 4] = np.nan
     zncc0 = np.zeros(9, np.float32)
     zncc0[6] = -1.0
-    oj, ot_, stats = _run_ops(ref, tar, xs, ys, zs, p0, zncc0, margin=2)
+    oj, ot_, stats = _run_ops(ref, tar, xs, ys, zs, p0, zncc0, margin=2,
+                              eval_mode=eval_mode)
     _assert_ops_equal(oj, ot_)
     z = ot_[4]
     assert (z[[0, 1, 2, 3, 5, 7]] == -3.0).all() and z[6] == -1.0
     assert (z[[4, 8]] > 0.99).all() and ot_[7][[4, 8]].all()
     assert not ot_[7][[0, 1, 2, 3, 5, 6, 7]].any()
-    assert stats["lattice"] > 0
+    assert (stats.get("lattice", 0) > 0) == (eval_mode == "lattice")
 
 
 def _module_pair(ref, tar, r, chunk, margin=8, device=CPU):
@@ -247,6 +252,20 @@ def test_icgn3d1_margin_rule_small_volume(speckle_pair_3d):
     _assert_tables_equal(outj, outt)
     assert mt.stats["iter"] > 0 and "lattice" not in mt.stats
     assert (outt.zncc.numpy() > 0.9).all()
+
+
+def test_sharded_margin_rule_extended_block():
+    """ShardedICGN3D1 takes ICGN3D1's window rule on a rank's extended
+    block: at r=8 and margin 8 (halo 17), two ranks of a 48-plane volume
+    hold 24 planes each, too few for the window alone (24 - 16 - 1 < 16),
+    but 58 with the halos; a 32-voxel y side (32 - 16 - 1 < 16) gives way
+    to the global eval on any mesh, a 33-voxel one does not."""
+    sh = ShardedICGN3D1(8, 8, 8)
+    assert sh.halo == 17
+    for dy, want in ((40, 8), (33, 8), (32, None)):
+        sh.set_images(np.zeros((48, dy, 40)), np.zeros((48, dy, 40)))
+        assert sh._margin(2) == want and sh._margin(1) == want
+        assert base.eval_margin(8, (8, 8, 8), (40, dy, 24)) is None
 
 
 def test_dvc_slice_matches_jax(speckle_pair_3d):

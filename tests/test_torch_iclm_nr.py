@@ -209,3 +209,18 @@ def test_global_eval_mode_matches_jax(queue, kind):
     assert not {"full", "correct", "exact", "exact_all"} & set(tm.stats)
     assert tm.stats["iter_full"] > 0
     assert tcls(R, R, eval_mode="global", device=CPU)._margin() is None
+
+
+@pytest.mark.parametrize("kind", ["icgn1", "iclm1", "nr1"])
+def test_margin_rule_small_image(kind):
+    """The windowed eval gives way to the global LUT on an image too small
+    for the window (``base.eval_margin``): at
+    r = 8 and margin 8, min(side - 2r) - 1 < 2 * margin below 33 px."""
+    tcls = {"icgn1": ot.ICGN2D1, "iclm1": ot.ICLM2D1, "nr1": ot.NR2D1}[kind]
+    m = tcls(8, 8, window_margin=8, device=CPU)
+    for shape, want in (((40, 33), 8), ((33, 40), 8), ((32, 40), None),
+                        ((40, 32), None)):
+        m.set_images(np.zeros(shape, np.uint8), np.zeros(shape, np.uint8))
+        assert m._margin() == want, shape
+    m.window_margin = None
+    assert m._margin() is None

@@ -38,16 +38,21 @@ def _frames(shape, move, seed=3):
             np.clip(np.round(tar), 0, 255).astype(np.uint8))
 
 
-def pair_2d(refiner=ot.ICGN2D1):
-    """FFTCC2D -> refiner -> Strain on 4,096 POIs of a 100 x 100 pair: wide
-    enough for ICGN2D1's compacted phase."""
+def pair_2d(refiner=ot.ICGN2D1, side=64, adaptive=False):
+    """FFTCC2D -> refiner -> Strain on side^2 POIs of a 100 x 100 pair: 64
+    gives 4,096, wide enough for ICGN2D1's compacted phase.  ``adaptive``:
+    self-adaptive subsets of radii 5 to 8 drawn per POI."""
     ref, tar = (ot.Image2D.from_array(a) for a in
                 _frames((100, 100), (0.6, -1.3)))
-    pois = ot.poi_grid_2d((18, 18), 64, 64, 1, device=CPU)
+    pois = ot.poi_grid_2d((18, 18), side, side, 64 // side, device=CPU)
     fftcc = ot.FFTCC2D(8, 8, device=CPU)
     fftcc.set_images(ref, tar)
     pois = fftcc.compute(pois)
     ic = refiner(8, 8, 0.001, 10, device=CPU)
+    if adaptive:
+        radii = np.random.default_rng(7).integers(5, 9, (pois.n, 2))
+        pois = pois.replace(sr=torch.from_numpy(radii.astype(np.float32)))
+        ic.set_self_adaptive(True)
     ic.set_images(ref, tar)
     ic.prepare()
     pois = ic.compute(pois)
@@ -75,8 +80,15 @@ def pair_3d():
 
 
 PAIRS = {"icgn2d1": pair_2d, "dvc": pair_3d,
+         "icgn2d1_small": lambda: pair_2d(side=16),
+         "icgn2d1_adaptive": lambda: pair_2d(adaptive=True),
          "iclm2d1": lambda: pair_2d(ot.ICLM2D1),
          "nr2d1": lambda: pair_2d(ot.NR2D1)}
+# the refiner's loops in each pair: ICGN2D1's two phases on 4,096 POIs, one
+# loop a compute on fewer and in the other 2D refiners, one a chunk in
+# ICGN3D1
+LOOPS = {"icgn2d1": 2, "dvc": 3, "icgn2d1_small": 1, "icgn2d1_adaptive": 1,
+         "iclm2d1": 1, "nr2d1": 1}
 
 
 def _traced(fn):
@@ -188,10 +200,11 @@ def test_the_counters_take_each_compute_under_its_layer(pair):
     assert got["fftcc.calls"] == 1
     refiner = list(modules)[-1]
     iters = sum(n for k, n in got.items() if k.split(".", 1)[1]
-                in ("iter_full", "iter_compact", "iter"))
+                in ("iter_full", "iter_compact", "iter_adaptive", "iter"))
     # one read of the active count an iteration, and one more that ends
     # each loop
-    assert got[f"{refiner}.sync.active"] >= iters + 1 >= 2
+    assert iters > 0
+    assert got[f"{refiner}.sync.active"] == iters + LOOPS[pair]
 
 
 # the Tensor methods that read a device value to the host
