@@ -9,7 +9,7 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
 (any failure raises and the script exits non-zero without a result line):
 
 1. Identify the card (``nvidia-smi`` name and power limit) and build the
-   four CUDA kernels from ``opencorr_tpu_torch/csrc`` (one ``nvcc`` each,
+   five CUDA libraries from ``opencorr_tpu_torch/csrc`` (one ``nvcc`` each,
    all started together).
 2. Each kernel against its plain PyTorch version on the card at the main
    paths' shapes (``kernel12_cases`` for kernels 1 and 2): the window
@@ -36,7 +36,14 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    re-rank kernel ``==`` its plain version at one DVC chunk (512 x 60^3,
    8 candidates clustered about the peak and scattered), timed against
    the two windows' bytes, with the memory it allocates and its ptxas
-   lines (``phase_rerank3d``); the
+   lines (``phase_rerank3d``); the global-LUT bicubic eval's kernel
+   (``bspline.bicubic_eval``) ``==`` its plain version, value and mask, at
+   one chunk of the self-adaptive path (10,749 POIs x 61^2 on a 3751x501
+   LUT, warped near identity, every 97th POI moved off the image), at the
+   flagship's exact fallback (940 x 33^2 on a 900x280 LUT) and on the edge
+   cases of the range guard, timed with and without its mask beside its
+   byte bound, the plain version and the port's first einsum, with its
+   ptxas lines (``phase_lut_eval2d``); the
    SIFT3D descriptor histogram at the octave-0 crops 23, 29 and 36, with
    random rotations, at 64 keypoints (some near the volume's faces in
    clamped windows; the kernel splits each box into z-bands) and at the
@@ -136,7 +143,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, in order
    3751x501 pair stretched 0.5% along x; strain (Strain(20, 5)) from the
    fftcc_icgn1 table just written.  Counters zeroed after the warm-up and
    read after the suite, kernels 1 and 2 counted per launch shape per
-   workload, their device time from phase 2's;
+   workload, their device time from phase 2's, and the global-LUT eval's
+   launches per workload (self_adaptive: one a Gauss-Newton step, equal
+   to its ``iter_adaptive`` count);
    prints each workload's stage times, table-writer times, branch counts,
    SIFT2D octave counts beside their caps, r_max and the writer.  Checks:
    the native table codec loaded and wrote every table; converged >= 0.9
@@ -347,6 +356,11 @@ ROT_SHIFT = (0.3, -0.4)
 UTN_SIZE = (501, 3751)
 UTN_STRETCH = 0.005
 UTN_SHIFT = (0.43, -0.27)
+# The global-LUT eval's launch shapes checked in phase 2: (LUT shape, POIs,
+# r).  One chunk of the self-adaptive path (ICGN2D1 at r_max=30 on the utn
+# pair, ``budget_chunk``'s 40 M-sample budget: 10,749 POIs, every chunk
+# padded to it) and the flagship's exact fallback (940 POIs at r=16).
+LUT_EVAL_CASES = ((UTN_SIZE, 40_000_000 // 61 ** 2, 30), ((H, W), 940, 16))
 
 
 def log(*a):
@@ -722,7 +736,8 @@ def case_images(torch, img, rng):
 def phase_kernels(torch, ot, img, rng, reps):
     """Kernel vs plain version on the card at the paths' shapes: kernels 1
     and 2 at ``kernel12_cases``, kernel 3 and ICGN3D1's step kernels at
-    one chunk of each 3D path."""
+    one chunk of each 3D path, FFTCC3D's re-rank at one DVC chunk and the
+    global-LUT eval at ``LUT_EVAL_CASES``."""
     dev = img.device
     gathers, lattices = kernel12_cases(ot)
     images = case_images(torch, img, rng)
@@ -747,6 +762,7 @@ def phase_kernels(torch, ot, img, rng, reps):
         records["prologue3d"].append(pro)
         records["residual3d"].append(res)
     records["rerank3d"] = phase_rerank3d(torch, reps)
+    records["lut2d"] = phase_lut_eval2d(torch, reps)
     return records
 
 
@@ -981,6 +997,163 @@ def phase_rerank3d(torch, reps):
         log(json.dumps({"kernel": "rerank_3d", **rec}))
         recs.append(rec)
         del ref_w, tar_w, flat, cand, got, want
+        torch.cuda.empty_cache()
+    return recs
+
+
+def lut_edge_coords(h, w, n, seed):
+    """[n] float32 coordinates over and past an h x w image, drawn from
+    ``seed``, the first eight the range guard's edge cases: the band just
+    below w-2 and h-2, the exact guards, NaN, and exact integers (samples
+    0, 2 and 5 in range, 1, 3, 4, 6 and 7 out)."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-2, w + 1, n).astype(np.float32)
+    ys = rng.uniform(-2, h + 1, n).astype(np.float32)
+    below_w = np.nextafter(np.float32(w - 2), np.float32(0))
+    below_h = np.nextafter(np.float32(h - 2), np.float32(0))
+    xs[:8] = [below_w, w - 2, 1.0, np.nan, 3.0, below_w, 0.999, 7.0]
+    ys[:8] = [5.5, 5.5, 1.0, 4.0, np.nan, below_h, 3.0, h - 2]
+    return xs, ys
+
+
+def lut_eval_case(torch, shape, n, r, seed, device="cuda"):
+    """The global-LUT eval's inputs as the refiner makes them, built on
+    ``device`` from ``seed``: the [H, W, 4, 4] LUT of a random 8-bit image
+    of ``shape`` and [n, (2r+1)^2] float32 sample coordinates of n POIs
+    on a step-5 grid from (50, 50), in the grid's order (up to 480 a row,
+    as the self-adaptive cell's grid), each under a first-order warp near
+    identity (|u|, |v| < 1 px, gradients below 0.01); every 97th POI is
+    moved 80 px left, so that some of its samples leave the image."""
+    from opencorr_tpu_torch.ops import bspline
+
+    h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=gen, device=device)
+    img = torch.round(rand(h, w) * 255.0)
+    lut = bspline.bicubic_prepare(img)
+    per_row = min(480, (w - 100) // 5)
+    i = torch.arange(n, device=device)
+    cx = (50 + 5 * (i % per_row) - 80 * (i % 97 == 0)).to(torch.float32)
+    cy = (50 + 5 * (i // per_row)).to(torch.float32)
+    side = torch.arange(-r, r + 1, dtype=torch.float32, device=device)
+    xl = side.repeat(2 * r + 1)[None, :]
+    yl = side.repeat_interleave(2 * r + 1)[None, :]
+    u, v = ((rand(n) * 2 - 1)[:, None] for _ in range(2))
+    ux, uy, vx, vy = ((rand(n) * 0.02 - 0.01)[:, None] for _ in range(4))
+    gx = cx[:, None] + xl + (u + ux * xl + uy * yl)
+    gy = cy[:, None] + yl + (v + vx * xl + vy * yl)
+    return lut, gx.contiguous(), gy.contiguous()
+
+
+def einsum_eval(torch, lut, xs, ys):
+    """The port's first global-LUT eval, the yardstick of kernel 6: a
+    gather of [..., 4, 4] coefficients and one einsum, which cuBLAS runs
+    as batched 4x4 gemv on the card.  Returns (value, oob)."""
+    from opencorr_tpu_torch.ops import bspline
+
+    h, w = lut.shape[:2]
+    oob = ((xs < 1) | (ys < 1) | (xs >= w - 2) | (ys >= h - 2)
+           | torch.isnan(xs) | torch.isnan(ys))
+    xq = torch.nan_to_num(xs, nan=1.0).clamp(1.0, bspline._below(w - 2))
+    yq = torch.nan_to_num(ys, nan=1.0).clamp(1.0, bspline._below(h - 2))
+    xi = torch.floor(xq).to(torch.int64)
+    yi = torch.floor(yq).to(torch.int64)
+    xd = xq - xi.to(xq.dtype)
+    yd = yq - yi.to(yq.dtype)
+    one = torch.ones_like(xd)
+    px = torch.stack([one, xd, xd * xd, xd * xd * xd], dim=-1)
+    py = torch.stack([one, yd, yd * yd, yd * yd * yd], dim=-1)
+    val = torch.einsum("...kl,...k,...l->...", lut[yi, xi], py, px)
+    return torch.where(oob, torch.full_like(val, -1.0), val), oob
+
+
+def lut_eval_bytes(torch, lut, xs, ys, oob):
+    """The global-LUT eval's bytes at one launch: (the bound's count, the
+    coordinates, value and mask once and each LUT entry the launch touches
+    once; the per-sample count, every sample's 64-byte entry from HBM;
+    the distinct entries)."""
+    w = lut.shape[1]
+    at = (torch.floor(ys[~oob]).to(torch.int64) * w
+          + torch.floor(xs[~oob]).to(torch.int64))
+    distinct = int(torch.unique(at).numel())
+    n = xs.numel()
+    return n * 13 + distinct * 64, n * 13 + int((~oob).sum()) * 64, distinct
+
+
+def phase_lut_eval2d(torch, reps):
+    """Kernel 6, the global-LUT bicubic eval (``bspline.bicubic_eval``),
+    against its plain version at ``LUT_EVAL_CASES`` and on the range
+    guard's edge cases, value and mask ``==`` bit for bit (and the mask
+    ``==`` the einsum's); timed with its mask and without (the C entry
+    with a null mask) beside its byte bound (``lut_eval_bytes``), the
+    plain version and the port's first einsum (``library_ms``), with its
+    registers from this process's build."""
+    from opencorr_tpu_torch.ops import _kernels, bspline
+
+    bits = lambda t: t.view(torch.int32)
+    for h, w in ((37, 45), UTN_SIZE):
+        lut = bspline.bicubic_prepare(torch.round(torch.rand(
+            (h, w), device="cuda") * 255.0))
+        xs, ys = (torch.from_numpy(a).cuda()
+                  for a in lut_edge_coords(h, w, 4099, seed=h))
+        got, oob = bspline.bicubic_eval(lut, xs, ys)
+        want, oob_want = bspline.bicubic_eval_plain(lut, xs, ys)
+        check(torch.equal(oob, oob_want)
+              and torch.equal(oob, einsum_eval(torch, lut, xs, ys)[1])
+              and torch.equal(bits(got), bits(want))
+              and bool((got[oob] == -1.0).all()),
+              f"bicubic_eval edge cases on {h}x{w}: the kernel differs "
+              "from its plain version")
+    recs = []
+    fn = bspline.bind_bicubic(_kernels.load("bicubic2d"))
+    for shape, n, r in LUT_EVAL_CASES:
+        lut, gx, gy = lut_eval_case(torch, shape, n, r, seed=n)
+        s = gx.shape[1]
+        before = bspline.bicubic_eval.launches
+        got, oob = bspline.bicubic_eval(lut, gx, gy)
+        check(bspline.bicubic_eval.launches == before + 1,
+              "bicubic_eval did not count its launch")
+        plain = lambda: bspline.bicubic_eval_plain(lut, gx, gy)
+        plain()  # its allocations made, so that the second call is timed
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want, oob_want = plain()
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        check(torch.equal(oob, oob_want)
+              and torch.equal(bits(got), bits(want)),
+              f"bicubic_eval {n}x{s}: the kernel differs from its plain "
+              "version")
+        del want, oob_want
+        torch.cuda.empty_cache()
+        library_ms = cuda_ms(torch, lambda: einsum_eval(torch, lut, gx, gy),
+                             2, warm=1)
+        nbytes, per_sample, distinct = lut_eval_bytes(torch, lut, gx, gy,
+                                                      oob)
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(torch, lambda: bspline.bicubic_eval(lut, gx, gy), reps)
+        val = torch.empty_like(gx)
+        stream = torch.cuda.current_stream().cuda_stream
+        ms_no_mask = cuda_ms(torch, lambda: _kernels.check(fn(
+            lut.data_ptr(), shape[0], shape[1], gx.data_ptr(), gy.data_ptr(),
+            gx.numel(), val.data_ptr(), None, stream), "bicubic2d"), reps)
+        check(torch.equal(bits(val), bits(got)),
+              "bicubic_eval without its mask differs")
+        rec = dict(
+            shape=[n, s], lut_shape=list(shape), bit_equal=True,
+            max_abs_err=0.0, oob_samples=int(oob.sum()), ms=ms,
+            ms_no_mask=ms_no_mask, plain_ms=plain_ms, library_ms=library_ms,
+            library_note="the port's first version: gather + einsum "
+                         "(cuBLAS gemv)",
+            bound_ms=tb, bound_by="bytes", share=tb / ms, bytes=nbytes,
+            per_sample_bytes=per_sample,
+            per_sample_bound_ms=per_sample / HBM_BYTES_PER_S * 1e3,
+            distinct_pixels=distinct,
+            ptxas=ptxas_usage("bicubic", "bicubic2d"))
+        log(json.dumps({"kernel": "bicubic_eval", **rec}))
+        recs.append(rec)
+        del lut, gx, gy, got, oob, val
         torch.cuda.empty_cache()
     return recs
 
@@ -2724,7 +2897,7 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
     3's, and that every launch shape is one phase 2 checked."""
     from opencorr_tpu_torch.examples import dic_2d
     from opencorr_tpu_torch.io import native
-    from opencorr_tpu_torch.ops import gather2d, lattice2d
+    from opencorr_tpu_torch.ops import bspline, gather2d, lattice2d
 
     check(native.available(), "the native table codec did not load")
     small = {"main": ((30, 30), 20, 20, 2), "rotation": ((50, 50), 20, 20, 2),
@@ -2734,14 +2907,15 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
         dic_2d.run(wl, *pairs[pair][:2], warm, "cuda", grid=small[pair])
     torch.cuda.synchronize()
     wrappers = (gather2d.gather_windows_2d, lattice2d.lattice_eval_2d)
-    for fn in wrappers:
+    lut_eval = bspline.bicubic_eval
+    for fn in (*wrappers, lut_eval):
         fn.launches = 0
     prefix = os.path.join(tmpdir, "dic2d")
     results = {}
     tables = {}
     matches = {}
     for wl in dic_2d.WORKLOADS:
-        for fn in wrappers:
+        for fn in (*wrappers, lut_eval):
             fn.shapes = {}
         info = {}
         t0 = time.perf_counter()
@@ -2759,6 +2933,8 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
                    kernel_device_ms={
                        fn.__name__: device_sum(fn, device_ms[fn.__name__])
                        for fn in wrappers},
+                   lut_eval_launches={"x".join(map(str, k)): v
+                                      for k, v in lut_eval.shapes.items()},
                    **{k: v for k, v in info.items()
                       if k not in ("sift2d_octaves", "sift_matches")})
         if wl != "strain":
@@ -2777,7 +2953,8 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
         results[wl] = rec
         if "sift_matches" in info:
             matches[wl] = info["sift_matches"]
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    lut_eval.shapes = None
+    launches = {fn.__name__: fn.launches for fn in (*wrappers, lut_eval)}
     log(json.dumps({"dic2d_launches": launches}))
 
     for name, v in launches.items():
@@ -2802,6 +2979,11 @@ def phase_dic2d(torch, ot, pairs, main_table, checked, device_ms, tmpdir):
         check(rec["mean_abs_du"] < 0.01 and rec["mean_abs_dv"] < 0.01,
               f"{wl}: displacement error {rec['mean_abs_du']}, "
               f"{rec['mean_abs_dv']}")
+    sa = results["self_adaptive"]
+    sa_evals = sum(sa["lut_eval_launches"].values())
+    check(sa_evals == sa["refine_stats"]["iter_adaptive"],
+          f"self_adaptive: {sa_evals} global-LUT eval launches, "
+          f"{sa['refine_stats']['iter_adaptive']} Gauss-Newton steps")
     sr = tables["self_adaptive"]["sr"]
     r_max = results["self_adaptive"]["r_max"]
     check(r_max == int(sr.max()) and (sr >= 10).all(),
@@ -3712,7 +3894,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    names = ["gather2d", "lattice2d", "lattice3d", "desc3d"]
+    names = ["gather2d", "lattice2d", "lattice3d", "desc3d", "bicubic2d"]
     build_s = _kernels.build(names)
     for name in names:
         log(f"build {name}: {build_s[name]:.1f} s")
@@ -3818,6 +4000,7 @@ def main() -> int:
         dic_res, dic_launches, dic_kp = phase_dic2d(
             torch, ot, pairs, main_table, checked, device_ms, tmpdir)
     by_path["dic2d"] = dict(dic_launches)
+    launches["bicubic_eval"] = dic_launches["bicubic_eval"]
     del pairs
     torch.cuda.empty_cache()
 
@@ -3922,6 +4105,11 @@ def main() -> int:
                 "opencorr_tpu_torch/csrc/fftcc3d_rerank.cuh",
                 "none: scores FFTCC3D's candidate peaks from the windows",
                 records["rerank3d"], list(RERANK_CHUNK), candidates="random"),
+        summary("bicubic_eval", "cuda",
+                "opencorr_tpu_torch/csrc/bicubic2d.cu",
+                "none: the JAX package's bicubic_eval is an XLA gather and "
+                "einsum", records["lut2d"],
+                [LUT_EVAL_CASES[0][1], (2 * LUT_EVAL_CASES[0][2] + 1) ** 2]),
         summary("descriptor_hist", "cuda",
                 "opencorr_tpu_torch/csrc/desc3d.cu",
                 "opencorr_tpu/ops/pallas_desc.py:87", records["desc"],

@@ -7,7 +7,9 @@ C = flip(BC . Q . BC^T), BC being the fixed basis*control matrix
 (``oc_cubic_bspline.h:52-58``); a query evaluates the bivariate cubic
 sum_{k,l} C[k,l] yd^k xd^l (``oc_cubic_bspline.cpp:134-181``).  Out-of-range
 queries (x<1, y<1, x>=W-2, y>=H-2, or NaN) return the -1.0 sentinel the
-refinement kernels use to detect out-of-bounds warps.
+refinement kernels use to detect out-of-bounds warps.  On CUDA tensors a
+query batch is one hand-written kernel, ``csrc/bicubic2d.cu``, whose plain
+version is :func:`bicubic_eval_plain`.
 
 3D (J. Yang et al., OLEN 136:106323, 2021): a global separable 15-tap
 symmetric prefilter along x, y and z with edge clamping (taps
@@ -17,8 +19,16 @@ query (``oc_cubic_bspline.cpp:353-405``), with the same -1 sentinel.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
+
+from . import _kernels
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 # BC = B * C from oc_cubic_bspline.h:52-58.
 BC_MATRIX = np.array(
@@ -80,11 +90,17 @@ def bicubic_prepare(img: torch.Tensor) -> torch.Tensor:
     return lut
 
 
-def bicubic_eval(lut: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
-    """Evaluate the bicubic spline at float coords.
+def bicubic_eval_plain(lut: torch.Tensor, xs: torch.Tensor,
+                       ys: torch.Tensor):
+    """The plain version of :func:`bicubic_eval`, on any device and dtype.
 
-    Returns ``(value, oob)``; out-of-range queries carry the reference's
-    -1.0 sentinel (oc_cubic_bspline.cpp:134-181)."""
+    Each product and sum is rounded on its own, in the order of the CUDA
+    kernel (``csrc/bicubic2d.cu``), so that the two agree to the last bit
+    in float32: t_l = ((c[0,l] + yd c[1,l]) + yd^2 c[2,l]) + yd^3 c[3,l],
+    then ((t_0 + xd t_1) + xd^2 t_2) + xd^3 t_3.  That is also the order
+    in which PyTorch's CPU einsum summed the port's first version, a
+    gather and ``einsum("...kl,...k,...l->...")``: on the tests' inputs
+    the two give the same bits."""
     h, w = lut.shape[:2]
     oob = ((xs < 1) | (ys < 1) | (xs >= w - 2) | (ys >= h - 2)
            | torch.isnan(xs) | torch.isnan(ys))
@@ -93,16 +109,89 @@ def bicubic_eval(lut: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
     # fractional part; the clip only sanitizes masked samples (NaN -> 1).
     xq = torch.nan_to_num(xs, nan=1.0).clamp(1.0, _below(w - 2))
     yq = torch.nan_to_num(ys, nan=1.0).clamp(1.0, _below(h - 2))
-    xi = torch.floor(xq).to(torch.int64)
-    yi = torch.floor(yq).to(torch.int64)
-    xd = xq - xi.to(torch.float32)
-    yd = yq - yi.to(torch.float32)
-    one = torch.ones_like(xd)
-    px = torch.stack([one, xd, xd * xd, xd * xd * xd], dim=-1)
-    py = torch.stack([one, yd, yd * yd, yd * yd * yd], dim=-1)
-    c = lut[yi, xi]  # [..., 4, 4]
-    val = torch.einsum("...kl,...k,...l->...", c, py, px)
+    xf = torch.floor(xq)
+    yf = torch.floor(yq)
+    xd = xq - xf
+    yd = (yq - yf)[..., None]
+    c = lut.reshape(h * w, 4, 4)[yf.to(torch.int64) * w
+                                 + xf.to(torch.int64)]  # [..., 4, 4]
+    yd2 = yd * yd
+    t = (c[..., 0, :] + c[..., 1, :] * yd + c[..., 2, :] * yd2
+         + c[..., 3, :] * (yd2 * yd))  # [..., 4], t_l
+    xd2 = xd * xd
+    val = (t[..., 0] + t[..., 1] * xd + t[..., 2] * xd2
+           + t[..., 3] * (xd2 * xd))
     return torch.where(oob, torch.full_like(val, -1.0), val), oob
+
+
+def check_kernel_args(lut: torch.Tensor, xs: torch.Tensor,
+                      ys: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the kernel takes these tensors: a
+    contiguous float32 [H, W, 4, 4] LUT on a 16-byte boundary (it is read
+    in 16-byte loads) and contiguous float32 coordinates of one shape, all
+    on one device."""
+    if lut.dim() != 4 or tuple(lut.shape[2:]) != (4, 4):
+        raise ValueError(f"bicubic_eval: LUT shape {tuple(lut.shape)}, "
+                         "expected [H, W, 4, 4]")
+    for name, t in (("lut", lut), ("xs", xs), ("ys", ys)):
+        if (t.device != lut.device or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"bicubic_eval: {name} needs a contiguous "
+                             f"float32 tensor on {lut.device}, got "
+                             f"{t.dtype} on {t.device}")
+    if lut.data_ptr() % 16:
+        raise ValueError("bicubic_eval: the LUT must start on a 16-byte "
+                         "boundary")
+    if xs.shape != ys.shape:
+        raise ValueError(f"bicubic_eval: coordinate shapes "
+                         f"{tuple(xs.shape)} and {tuple(ys.shape)}")
+
+
+def bicubic_eval(lut: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
+    """Evaluate the bicubic spline at float coords.
+
+    Returns ``(value, oob)``; out-of-range queries carry the reference's
+    -1.0 sentinel (oc_cubic_bspline.cpp:134-181).  CPU tensors take
+    :func:`bicubic_eval_plain`; CUDA tensors the kernel
+    ``csrc/bicubic2d.cu``, which raises on tensors it does not take
+    (:func:`check_kernel_args`)."""
+    dev = lut.device
+    if dev.type == "cpu":
+        return bicubic_eval_plain(lut, xs, ys)
+    if dev.type != "cuda":
+        raise ValueError(f"bicubic_eval: unsupported device {dev}")
+    check_kernel_args(lut, xs, ys)
+    h, w = lut.shape[:2]
+    n = xs.numel()
+    val = torch.empty_like(xs)
+    oob = torch.empty(xs.shape, dtype=torch.bool, device=dev)
+    if n:
+        fn = _bicubic_entry()
+        with _kernels.on_device(dev):
+            _kernels.launch(bicubic_eval, lambda: fn(
+                lut.data_ptr(), h, w, xs.data_ptr(), ys.data_ptr(), n,
+                val.data_ptr(), oob.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream), shape=(n,))
+    return val, oob
+
+
+bicubic_eval.launches = 0  # kernel launches, for run-level checks
+# a dict: launches by sample count (n,), counted while it is set
+bicubic_eval.shapes = None
+
+
+def bind_bicubic(lib: ctypes.CDLL):
+    """The kernel's C entry point in a loaded library, typed."""
+    fn = lib.oc_bicubic_eval_2d
+    fn.argtypes = [_P, _I, _I, _P, _P, ctypes.c_longlong, _P, _P, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bicubic_entry():
+    """The typed entry point of the package's build, bound once."""
+    return bind_bicubic(_kernels.load("bicubic2d"))
 
 
 def _prefilter_axis(vol: torch.Tensor, axis: int) -> torch.Tensor:

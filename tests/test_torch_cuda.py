@@ -26,7 +26,11 @@ run, and ``icgn3d1`` through both (with and without z guards) within
 plain ``fftcc._rerank3d`` at one DVC chunk, a short chunk, odd shapes and
 planes too large for shared memory, on ties, negative products, values
 just inside the range guard and half-integral voxels; ``fftcc3d`` on cuda
-``==`` on cpu where some windows are not integral."""
+``==`` on cpu where some windows are not integral.  The global-LUT
+bicubic eval: value and mask ``==`` its plain version bit for bit at one
+chunk of the self-adaptive path, at the flagship's exact fallback, at a
+ragged size and on the range guard's edge cases; no launch on an empty
+input."""
 
 import collections
 import dataclasses
@@ -35,8 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from opencorr_tpu_torch.ops import (desc3d, fftcc, gather2d, lattice2d,
-                                    lattice3d, rerank3d)
+from opencorr_tpu_torch.ops import (bspline, desc3d, fftcc, gather2d,
+                                    lattice2d, lattice3d, rerank3d)
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and torch's CPU thread pools stall when they oversubscribe the cores.
@@ -1205,3 +1209,70 @@ def test_fused_icgn3d1_cuda_matches_cpu(cuda, guards):
                      *(torch.as_tensor(a).to(cuda, torch.float64)
                        for a in (xs, ys, zs, p, np.zeros(n))),
                      0.001, 10.0, **kw)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n,r", [
+    ((501, 3751), 10749, 30),  # one self-adaptive chunk: 40.0 M samples
+    ((900, 280), 940, 16),  # the flagship's exact fallback
+    ((900, 280), 77, 6),  # 13,013 samples: a ragged last block
+])
+def test_bicubic_kernel_equals_plain(cuda, shape, n, r):
+    """Warped coordinates near identity as on the refiners' path, some
+    POIs moved off the image: value and mask equal bit for bit."""
+    import chip_smoke as cs
+
+    lut, gx, gy = cs.lut_eval_case(torch, shape, n, r, seed=n)
+    before = bspline.bicubic_eval.launches
+    got, oob = bspline.bicubic_eval(lut, gx, gy)
+    assert bspline.bicubic_eval.launches == before + 1
+    want, oob_want = bspline.bicubic_eval_plain(lut, gx, gy)
+    assert torch.equal(oob, oob_want)
+    assert torch.equal(_bits(got), _bits(want))
+    assert oob.any() and not oob.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(37, 45), (501, 3751)])
+def test_bicubic_kernel_edge_cases(cuda, h, w):
+    """The _below band, the exact guards, NaN and exact integers: the mask
+    equal to the plain version's and to the port's first einsum's, -1 on
+    every masked sample, values equal bit for bit; an empty input makes
+    no launch."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(h)
+    img = torch.from_numpy(np.round(rng.uniform(0, 255, (h, w))).astype(
+        np.float32)).to(cuda)
+    lut = bspline.bicubic_prepare(img)
+    xs, ys = (torch.from_numpy(a).to(cuda)
+              for a in cs.lut_edge_coords(h, w, 4099, seed=h))
+    got, oob = bspline.bicubic_eval(lut, xs, ys)
+    want, oob_want = bspline.bicubic_eval_plain(lut, xs, ys)
+    assert torch.equal(oob, oob_want)
+    assert torch.equal(oob, cs.einsum_eval(torch, lut, xs, ys)[1])
+    assert (got[oob] == -1.0).all()
+    assert torch.equal(_bits(got), _bits(want))
+    assert not oob[[0, 2, 5]].any() and oob[[1, 3, 4, 6, 7]].all()
+    before = bspline.bicubic_eval.launches
+    empty = torch.empty((0, 3721), device=cuda)
+    val, mask = bspline.bicubic_eval(lut, empty, empty)
+    assert bspline.bicubic_eval.launches == before
+    assert val.shape == (0, 3721) and mask.shape == (0, 3721)
+
+
+@pytest.mark.cuda
+def test_bicubic_wrapper_refuses_bad_tensors(cuda):
+    lut = torch.zeros((12, 10, 4, 4), device=cuda)
+    xs = torch.zeros((6, 5), device=cuda)
+    off = torch.zeros(12 * 10 * 16 + 1, device=cuda)[1:].view(12, 10, 4, 4)
+    for bad in ((lut.double(), xs, xs), (lut, xs.double(), xs.double()),
+                (lut, xs.cpu(), xs.cpu()), (lut, xs.t(), xs.t()),
+                (lut.reshape(12, 10, 16), xs, xs), (lut, xs, xs[:5]),
+                (off, xs, xs)):
+        with pytest.raises(ValueError):
+            bspline.bicubic_eval(*bad)

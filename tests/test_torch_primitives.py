@@ -1,12 +1,17 @@
 """The port's image-level primitives against the JAX package on the CPU:
 gradients, the bicubic B-spline LUT and its evaluation, warps and the small
 unpivoted Gauss-Jordan solves.  Tolerance: 1e-6 relative to the largest
-magnitude of the compared field (float32 sums taken in another order)."""
+magnitude of the compared field (float32 sums taken in another order).
+The bicubic eval's plain version, whose rounding order the CUDA kernel
+repeats, also against the port's first einsum (``chip_smoke.einsum_eval``)
+within 8 float32 ulps, and what the CUDA wrapper refuses."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke as cs
 
 from opencorr_tpu.ops import bspline as jbs
 from opencorr_tpu.ops import gradient as jgrad
@@ -83,6 +88,74 @@ def test_bicubic_eval_matches_jax():
     assert (vt[oob] == -1.0).all() and (vj[oob] == -1.0).all()
     assert not oob[[0, 2, 5]].any() and oob[[1, 3, 4, 6, 7]].all()
     _close(vt[~oob], vj[~oob])
+
+
+def _speckle(h, w, seed):
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    base = gaussian_filter(rng.standard_normal((h, w)), 1.5)
+    return np.round(base / base.std() * 28.0 + 128.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("texture", ["noise", "speckle"])
+def test_bicubic_eval_plain_matches_einsum(texture):
+    """The plain version (the CUDA kernel's rounding order) against the
+    port's first einsum formula: the oob mask equal, the -1 sentinel on
+    the same samples, values within 8 float32 ulps.  On speckle (grey
+    levels far from 0) the ulps are the value's; on white noise the terms
+    of the bicubic sum cancel, so they are the ulps of its magnitude
+    sum_kl |c_kl| yd^k xd^l (a float32 sum in any order rounds within
+    about 4 of them)."""
+    h, w = 37, 45
+    img = _img(h, w, seed=2) if texture == "noise" else _speckle(h, w, 5)
+    lut = tbs.bicubic_prepare(torch.from_numpy(img))
+    xs, ys = map(torch.from_numpy, cs.lut_edge_coords(h, w, 4000, seed=3))
+    want, oob_want = cs.einsum_eval(torch, lut, xs, ys)
+    # in range, xd and yd lie in [0, 1): the eval of |c| is the magnitude
+    mag = cs.einsum_eval(torch, lut.abs(), xs, ys)[0]
+    for got, oob in (tbs.bicubic_eval_plain(lut, xs, ys),
+                     tbs.bicubic_eval(lut, xs, ys)):
+        assert torch.equal(oob, oob_want)
+        assert (got[oob] == -1.0).all()
+        assert not oob[[0, 2, 5]].any() and oob[[1, 3, 4, 6, 7]].all()
+        scale = mag if texture == "noise" else want.abs()
+        ulp = torch.from_numpy(np.spacing(scale.numpy().astype(np.float32)))
+        assert ((got - want).abs() <= 8 * ulp)[~oob].all()
+    assert oob.sum() > 100 and (~oob).sum() > 2000
+
+
+def test_bicubic_eval_plain_float64_matches_einsum():
+    """The float64 replay's path: the plain version in float64 within
+    1e-12 of the einsum formula's magnitude, the mask equal."""
+    h, w = 37, 45
+    lut = tbs.bicubic_prepare(torch.from_numpy(_speckle(h, w, 6))).double()
+    xs, ys = (torch.from_numpy(a).double()
+              for a in cs.lut_edge_coords(h, w, 1000, seed=4))
+    want, oob_want = cs.einsum_eval(torch, lut, xs, ys)
+    mag = cs.einsum_eval(torch, lut.abs(), xs, ys)[0]
+    got, oob = tbs.bicubic_eval_plain(lut, xs, ys)
+    assert got.dtype == torch.float64 and torch.equal(oob, oob_want)
+    assert ((got - want).abs() <= 1e-12 * mag)[~oob].all()
+
+
+def test_bicubic_kernel_args_refused():
+    """What the CUDA wrapper refuses, checked on CPU tensors: a wrong
+    dtype, LUT shape, layout, alignment, coordinate shape or device; and
+    a device that is neither CPU nor CUDA."""
+    lut = torch.zeros((12, 10, 4, 4))
+    xs = torch.zeros((6, 5))
+    tbs.check_kernel_args(lut, xs, xs)  # what it takes
+    off = torch.zeros(12 * 10 * 16 + 1)[1:].view(12, 10, 4, 4)
+    for bad in ((lut.double(), xs, xs), (lut, xs.double(), xs),
+                (lut, xs, xs.half()), (lut.reshape(12, 10, 16), xs, xs),
+                (lut.transpose(0, 1), xs, xs), (lut, xs.t(), xs.t()),
+                (lut, xs[:, ::2], xs[:, ::2]), (off, xs, xs),
+                (lut, xs, xs[:5]), (lut, xs, xs.to("meta"))):
+        with pytest.raises(ValueError):
+            tbs.check_kernel_args(*bad)
+    with pytest.raises(ValueError):
+        tbs.bicubic_eval(lut.to("meta"), xs.to("meta"), xs.to("meta"))
 
 
 def test_warp_round_trip_matches_jax():
