@@ -32,6 +32,7 @@ from ..models.icgn import ICGN2D1, ICGN2D2
 from ..models.sift2d import SIFT2D
 from ..models.stereovision import Stereovision
 from ..utils.precision import DeviceLike, resolve_device
+from ..utils import timing
 from ..utils.timing import StageTimer
 
 
@@ -161,7 +162,8 @@ def run(ref_view1, ref_view2, tar_view1, tar_view2, pts, cam1: Calibration,
 
     with stage("r1_to_t2"):  # phase 3: cross match ref1 -> tar2
         with stage("epipolar_t2"):
-            rounded = torch.round(tar_view1_pts).cpu().numpy()
+            rounded = timing.host_read("epipolar.sync.points",
+                                       torch.round(tar_view1_pts))
             round_pois = poi_mod.new_table_2d(rounded[:, 0], rounded[:, 1],
                                               device=dev)
             epi.set_images(tar_view1, tar_view2)

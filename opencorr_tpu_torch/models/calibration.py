@@ -8,7 +8,8 @@ Rodrigues, oc_calibration.cpp:50-60); projection matrix P = K[R|t]
 by the reference's fixed-point iteration (conv 0.001, at most 40
 iterations, :161-219), all pixels at once on the device; ``undistort`` looks
 points up in those maps bilinearly and maps them back to the sensor
-(:221-264), batched over point arrays.
+(:221-264), batched over point arrays.  ``prepare`` runs in the span
+``calibration.prepare``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.precision import DeviceLike, f32, fma, resolve_device
 
 
@@ -198,9 +200,10 @@ class Calibration:
 
     def prepare(self, height: int, width: int) -> None:
         """Build the [height, width] undistortion maps on the device."""
-        self.map_x, self.map_y = build_undistortion_maps(
-            self.intrinsics, self.convergence, int(height), int(width),
-            self.iteration, self.device)
+        with timing.span("calibration.prepare"):
+            self.map_x, self.map_y = build_undistortion_maps(
+                self.intrinsics, self.convergence, int(height), int(width),
+                self.iteration, self.device)
 
     def undistort(self, xs, ys):
         """Sensor coordinates -> undistorted sensor coordinates, batched."""

@@ -10,6 +10,17 @@ largest ZNCC (:190-194).  The reference loops over POIs with an OpenMP loop
 over candidates inside; here the candidate axis becomes a batch axis: the
 [N_poi x N_candidates] queue runs through one batched ``icgn2d`` on the
 global LUT, then a per-POI argmax (the first maximum) picks the winner.
+
+The search's coarse refiner takes the search's layer: ``prepare`` runs in
+the span ``epipolar.prepare`` (> ``epipolar.gradient``,
+``epipolar.prefilter``), ``compute`` in ``epipolar.compute`` (>
+``epipolar.setup``, ``.iter``, ``.eval``, ``.finish`` and the host reads
+``epipolar.sync.*``), and the refiner's ``stats`` go to the process's
+counters as ``epipolar.<key>``: its iterations (``iter_full``,
+``iter_compact``) and the search's ``candidates`` (candidate problems
+queued, padding included), ``candidates_out`` (candidates outside the
+image, which the argmax skips) and ``padded`` (padded POIs computed and
+dropped).
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import torch
 
 from ..data import poi as poi_mod
 from ..ops import icgn as icgn_ops
+from ..utils import timing
 from ..utils.precision import f32, fma
 from . import base
 from .calibration import Calibration
@@ -74,6 +86,7 @@ class EpipolarSearch(base.Module2D):
         self.icgn1 = ICGN2D1(subset_radius_x, subset_radius_y,
                              conv_criterion, stop_condition,
                              window_margin=None, device=self.device)
+        self.icgn1.layer = self.layer
 
     def update_cameras(self, view1_cam: Calibration,
                        view2_cam: Calibration) -> None:
@@ -87,6 +100,12 @@ class EpipolarSearch(base.Module2D):
                                                      self.view2_cam)
         self.icgn1.set_images(self.ref_img, self.tar_img)
         self.icgn1.prepare()
+
+    @property
+    def stats(self):
+        """The coarse refiner's ``stats``, which also count the search's
+        candidates."""
+        return self.icgn1.stats
 
     def candidate_offsets(self) -> np.ndarray:
         """Candidate steps along the line in the reference's order: the
@@ -107,10 +126,15 @@ class EpipolarSearch(base.Module2D):
     def compute(self, table: poi_mod.POITable2D) -> poi_mod.POITable2D:
         if self.icgn1 is None or self.fundamental_matrix is None:
             raise RuntimeError("call create_icgn() and prepare() first")
+        with timing.computing(self.layer, self.stats):
+            return self._compute(table)
+
+    def _compute(self, table: poi_mod.POITable2D) -> poi_mod.POITable2D:
         self._check_table(table)
         offsets = self.candidate_offsets()
         chunk = self.chunk_pois()
         m = self.icgn1
+        outside = []  # each chunk's count of candidates outside the image
         args = dict(
             fmat=[[f32(v) for v in row] for row in self.fundamental_matrix],
             par_x=[f32(v) for v in self.parallax_x],
@@ -120,18 +144,26 @@ class EpipolarSearch(base.Module2D):
             rx=m.subset_radius_x, ry=m.subset_radius_y, stats=m.stats)
 
         def run(t):
-            p, r = epipolar_compute(m._gx, m._gy, self.ref_img, m._lut, t.x,
-                                    t.y, t.p, **args)
+            p, r, out = epipolar_compute(m._gx, m._gy, self.ref_img, m._lut,
+                                         t.x, t.y, t.p, **args)
+            outside.append(out)
             return t.replace(p=p, r=r)
 
-        return base.chunked(run, table, chunk)
+        out = base.chunked(run, table, chunk)
+        padded = 0 if chunk is None or table.n <= chunk else -table.n % chunk
+        m.stats["padded"] += padded
+        m.stats["candidates"] += (table.n + padded) * len(offsets)
+        m.stats["candidates_out"] += timing.host_read(
+            f"{self.layer}.sync.candidates_out", sum(outside), int)
+        return out
 
 
 def epipolar_compute(gx, gy, ref_img, tar_lut, xs, ys, p_in, *, fmat, par_x,
                      par_y, offsets, conv, max_iter, rx, ry, stats=None):
     """One chunk of the search.  ``fmat``: 3x3 float32 values as nested
     lists, ``par_x``/``par_y`` the bilinear parallax coefficients,
-    ``offsets`` [C] the candidate steps.  Returns (p [N, 12], r [N, 6]).
+    ``offsets`` [C] the candidate steps.  Returns (p [N, 12], r [N, 6],
+    the count of candidates outside the image, on the device).
 
     The line and candidate arithmetic rounds each multiply-add once where
     XLA fuses the JAX package's (``fma``), so that the ``(int)``
@@ -181,7 +213,7 @@ def epipolar_compute(gx, gy, ref_img, tar_lut, xs, ys, p_in, *, fmat, par_x,
         ys.repeat_interleave(c), p_flat, torch.zeros(n * c, dtype=fl,
                                                      device=dev),
         conv, max_iter, order=1, rx=rx, ry=ry, window_margin=None,
-        stats=stats)
+        stats=stats, layer=EpipolarSearch.layer)
 
     zncc_nc = zncc.reshape(n, c)
     score = torch.where(cand_ok, zncc_nc,
@@ -202,4 +234,4 @@ def epipolar_compute(gx, gy, ref_img, tar_lut, xs, ys, p_in, *, fmat, par_x,
          torch.where(comp, take(dpn), zero), torch.zeros(n, dtype=fl,
                                                          device=dev)], -1)
     # the winner's whole deformation vector (:193)
-    return take(p_out), r_best
+    return take(p_out), r_best, (~cand_ok).sum()

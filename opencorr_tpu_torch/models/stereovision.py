@@ -4,7 +4,8 @@ oc_stereovision.h:20).
 Fundamental matrix F = K2^-T [t]x R2 K1^-1 (oc_stereovision.cpp:36-54);
 ``reconstruct`` undistorts both 2D points and solves the 4x3 linear
 triangulation by least squares through its normal equations (:70-124),
-batched over point arrays on the cameras' device.
+batched over point arrays on the cameras' device, in the span
+``stereovision.reconstruct``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops import linalg as linalg_ops
+from ..utils import timing
 from ..utils.precision import fma
 from .calibration import Calibration, undistort_points
 
@@ -74,17 +76,18 @@ class Stereovision:
         c1, c2 = self.view1_cam, self.view2_cam
         if c1.map_x is None or c2.map_x is None:
             raise RuntimeError("prepare both cameras first")
-        dev = c1.map_x.device
-        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
-        v1, v2 = as_t(view1_pts), as_t(view2_pts)
-        bad = torch.isnan(v1).any(1) | torch.isnan(v2).any(1)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        v1 = torch.where(bad[:, None], zero, v1)
-        v2 = torch.where(bad[:, None], zero, v2)
-        x1, y1 = undistort_points(c1.map_x, c1.map_y, c1.intrinsics,
-                                  v1[:, 0], v1[:, 1])
-        x2, y2 = undistort_points(c2.map_x, c2.map_y, c2.intrinsics,
-                                  v2[:, 0], v2[:, 1])
-        world = triangulate(as_t(c1.projection_matrix),
-                            as_t(c2.projection_matrix), x1, y1, x2, y2)
-        return torch.where(bad[:, None], zero, world)
+        with timing.span("stereovision.reconstruct"):
+            dev = c1.map_x.device
+            as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
+            v1, v2 = as_t(view1_pts), as_t(view2_pts)
+            bad = torch.isnan(v1).any(1) | torch.isnan(v2).any(1)
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            v1 = torch.where(bad[:, None], zero, v1)
+            v2 = torch.where(bad[:, None], zero, v2)
+            x1, y1 = undistort_points(c1.map_x, c1.map_y, c1.intrinsics,
+                                      v1[:, 0], v1[:, 1])
+            x2, y2 = undistort_points(c2.map_x, c2.map_y, c2.intrinsics,
+                                      v2[:, 0], v2[:, 1])
+            world = triangulate(as_t(c1.projection_matrix),
+                                as_t(c2.projection_matrix), x1, y1, x2, y2)
+            return torch.where(bad[:, None], zero, world)
